@@ -26,7 +26,7 @@ bench-suite:
 	$(PYTHON) bench.py --suite
 
 check:
-	bash scripts/tpu_check.sh
+	$(PYTHON) chip_smoke.py
 
 clean:
 	$(MAKE) -C native clean

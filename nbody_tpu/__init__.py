@@ -1,10 +1,11 @@
-"""nbody_tpu — a TPU-native gravitational N-body framework.
+"""nbody_tpu — a gravitational N-body framework for the GPU.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the
 NTHU-SC/nbody-demo-2023 reference (see SURVEY.md for the structural map):
 all-pairs softened gravity, semi-implicit Euler integration, kinetic-energy
 diagnostics, the reference's benchmark table, a pluggable kernel registry
-(naive jnp / tiled Pallas), and GSPMD particle-sharded multi-chip scaling.
+(naive jnp / tiled Pallas), and GSPMD particle-sharded multi-device
+scaling.
 """
 
 from .config import SimConfig

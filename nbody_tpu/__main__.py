@@ -6,17 +6,17 @@ Positional-argument compatible with the reference binaries:
 token is echoed to stdout, cpu_ratio is accepted for CLI parity, and the
 thread dims map onto kernel tile sizes).
 
-TPU-native options replace the reference's compile-time #define matrix:
-    --kernel {naive,pallas,pallas_sym,pallas_mxu,pm,p3m,auto}  force-kernel
-                                   backend (ARCH= analog); pm = O(N log N)
-                                   mesh solver (--pm-grid), approximate;
-                                   p3m = pm + exact short-range correction
+Runtime options replace the reference's compile-time #define matrix:
+    --kernel {naive,pallas,pm,p3m,auto}  force-kernel backend (ARCH=
+                                   analog); pallas = tiled GPU pair
+                                   kernel; pm = O(N log N) mesh solver
+                                   (--pm-grid), approximate; p3m = pm +
+                                   exact short-range correction
                                    (--pm-cutoff/--pm-capacity), accurate
                                    on clustered distributions
     --precision {f32,bf16,ref64}   numeric mode (ref64 = bit-exact oracle)
     --integrator {euler,leapfrog}  parity default / symplectic option
-    --shards K --comm {allgather,ring,rdma}  GSPMD particle decomposition
-    --fused                        whole sample block in one VMEM kernel
+    --shards K --comm {allgather,ring}  GSPMD particle decomposition
     --tile-i/--tile-j/--autotune   Pallas tile selection
     --distribution/--seed          initial-condition families
     --save-state/--load-state/--snapshot-*   checkpointing & trajectories
@@ -45,13 +45,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("n", nargs="?", type=int, default=2000)
     p.add_argument("nsteps", nargs="?", type=int, default=500)
     p.add_argument("device", nargs="?", default=None,
-                   help="cpu|gpu|tpu|cpu+gpu (reference CLI parity)")
+                   help="cpu|gpu|cpu+gpu (reference CLI parity)")
     p.add_argument("cpu_ratio", nargs="?", type=float, default=None)
     p.add_argument("dim0", nargs="?", type=int, default=0)
     p.add_argument("dim1", nargs="?", type=int, default=0)
     p.add_argument("--kernel", default="auto",
-                   choices=["naive", "pallas", "pallas_sym", "pallas_mxu",
-                            "pm", "p3m", "auto"])
+                   choices=["naive", "pallas", "pm", "p3m", "auto"])
     p.add_argument("--pm-grid", type=int, default=0, metavar="NG",
                    help="particle-mesh grid points per axis for "
                         "--kernel pm/p3m (default 128; O(N log N) "
@@ -81,13 +80,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "cell/ghost overflow on the evolved state "
                         "(grow-only; rebuilds+recompiles the blocks). "
                         "Default: warn once and keep the t=0 plan")
-    p.add_argument("--pm-sr-layout", default="",
-                   choices=["", "xla", "pallas", "pallas_sym",
-                            "pallas_paired", "pallas_paired_sym"],
-                   help="P3M short-range sweep layout (default: module "
-                        "default, or the measured winner under "
-                        "--autotune; pallas* requests still respect the "
-                        "VMEM gate and Mosaic acceptance probe)")
     p.add_argument("--precision", default="f32",
                    choices=["f32", "bf16", "ref64"])
     p.add_argument("--tile-i", type=int, default=0)
@@ -98,19 +90,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="retune tiles during the run, one candidate per "
                         "sample block (the OpenCL backend's per-block "
                         "tuner analog)")
-    p.add_argument("--fused", action="store_true",
-                   help="run each sample block as ONE VMEM-resident kernel "
-                        "(f32/single-device, N<=8192)")
     p.add_argument("--interpret", action="store_true",
-                   help="run Pallas kernels in interpreter mode (debug / "
-                        "exercise the pallas paths on CPU)")
+                   help="run the Pallas kernel in interpreter mode (debug / "
+                        "exercise the pallas path on CPU)")
     p.add_argument("--shards", type=int, default=1)
     p.add_argument("--comm", default="allgather",
-                   choices=["allgather", "ring", "ring_sym", "rdma"],
-                   help="sharded source exchange: XLA all-gather, XLA "
-                        "ppermute ring, the pair-symmetric half-ring "
-                        "(~half the compute AND hops), or the fused "
-                        "in-kernel RDMA ring")
+                   choices=["allgather", "ring"],
+                   help="sharded source exchange: XLA all-gather or XLA "
+                        "ppermute ring")
     p.add_argument("--sfreq", type=int, default=50)
     p.add_argument("--dt", type=float, default=0.1)
     p.add_argument("--integrator", default="euler",
@@ -145,29 +132,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _enable_compilation_cache() -> None:
-    """Persist compiled executables across CLI invocations (compile times
-    on remote-compile backends can reach minutes for new shapes)."""
-    import os
-
-    import jax
-
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.path.join(
-                os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
-                "nbody_tpu", "xla",
-            ),
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass  # older jax or read-only filesystem: run without the cache
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _enable_compilation_cache()
+    from .utils.platform import enable_compilation_cache
+
+    enable_compilation_cache()
     if args.list_devices:
         import jax
 
@@ -207,10 +176,10 @@ def main(argv=None) -> int:
         tile_j=args.tile_j or args.dim1, pm_grid=args.pm_grid,
         pm_cutoff=args.pm_cutoff, pm_capacity=args.pm_capacity,
         pm_boundary=args.pm_boundary, pm_box=args.pm_box,
-        pm_sr_layout=args.pm_sr_layout, pm_replan=args.pm_replan,
+        pm_replan=args.pm_replan,
         autotune=args.autotune,
         autotune_online=args.autotune_online,
-        fused=args.fused, interpret=args.interpret,
+        interpret=args.interpret,
         precision=args.precision,
         shards=args.shards, comm=args.comm,
         platform=args.platform or ("cpu" if args.device == "cpu" else None),
@@ -230,7 +199,7 @@ def main(argv=None) -> int:
         # selector (ver5_all/main.cpp:42-45: cpu=1, gpu=2, cpu+gpu=3).
         if sim.world_rank == 0:
             print(args.device)
-        selector = {"cpu": 1, "gpu": 2, "tpu": 2, "cpu+gpu": 3}.get(args.device)
+        selector = {"cpu": 1, "gpu": 2, "cpu+gpu": 3}.get(args.device)
         if selector is not None:
             sim.set_devices(selector)
     if args.cpu_ratio is not None:

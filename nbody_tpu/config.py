@@ -24,7 +24,7 @@ class SimConfig:
     energy_check: bool = False  # report total-energy drift (KE+PE) at end
 
     # Kernel selection (the ver5_all ARCH= backend seam, runtime-switchable).
-    kernel: str = "auto"  # naive | pallas | pallas_sym | pm | p3m | auto
+    kernel: str = "auto"  # naive | pallas | pm | p3m | auto
     tile_i: int = 0  # 0 = kernel default
     tile_j: int = 0
     pm_grid: int = 0  # particle-mesh grid per axis (0 = kernel default)
@@ -43,10 +43,6 @@ class SimConfig:
     # boundary mode")
     pm_box: float = 0.0  # periodic box edge (required > 0 for periodic;
     # positions are wrapped into [0, pm_box) inside the solver)
-    pm_sr_layout: str = ""  # P3M short-range sweep layout (ops/pm.py
-    # SR_LAYOUTS: xla | pallas | pallas_sym | pallas_paired |
-    # pallas_paired_sym).  "" = module default, or the measured winner
-    # when --autotune is on (utils.autotune.autotune_sr_layout)
     pm_replan: bool = False  # re-measure the P3M plan mid-run when the
     # per-sample-block health check (cell/ghost overflow on the CURRENT
     # state) crosses threshold, growing the static plan and rebuilding
@@ -57,14 +53,13 @@ class SimConfig:
     # (the reference's opencl tuner adjusts its split every sample block,
     # opencl/Compute.cpp:317-321; here each candidate tiling gets a
     # warm-up block plus a timed block, then the best is locked in)
-    fused: bool = False  # whole sample block in one VMEM-resident kernel
-    interpret: bool = False  # run Pallas kernels in interpreter mode
-    # (debug / CPU execution of the pallas paths)
+    interpret: bool = False  # run the Pallas kernel in interpreter mode
+    # (debug / CPU execution of the pallas path)
     precision: str = "f32"  # f32 | bf16 | ref64 (bit-exact host oracle)
 
     # Parallelism (the USE_MPI axis, as GSPMD sharding).
     shards: int = 1
-    comm: str = "allgather"  # allgather | ring | ring_sym | rdma
+    comm: str = "allgather"  # allgather | ring
 
     # Placement: None = default accelerator; "cpu" pins to host backend.
     platform: Optional[str] = None
@@ -93,11 +88,6 @@ class SimConfig:
             raise ValueError(f"sfreq must be >= 1, got {self.sfreq}")
         if self.shards < 1:
             raise ValueError(f"shards must be >= 1, got {self.shards}")
-        if self.fused and self.shards > 1:
-            raise ValueError(
-                "--fused is single-device (the whole block lives in one "
-                "chip's VMEM); it cannot be combined with --shards > 1"
-            )
         from .types import PRECISIONS
 
         if self.precision not in PRECISIONS:
@@ -134,22 +124,6 @@ class SimConfig:
         elif self.pm_box:
             raise ValueError("--pm-box only applies to --pm-boundary "
                              "periodic")
-        if self.pm_sr_layout:
-            from .ops.pm import SR_LAYOUTS
-
-            if self.pm_sr_layout not in SR_LAYOUTS:
-                raise ValueError(
-                    f"unknown --pm-sr-layout {self.pm_sr_layout!r}; "
-                    f"options: {tuple(SR_LAYOUTS)}"
-                )
-            if self.kernel not in ("pm", "p3m") or not (
-                self.pm_cutoff or self.kernel == "p3m"
-            ):
-                raise ValueError(
-                    "--pm-sr-layout selects the P3M short-range sweep "
-                    "layout; it requires --kernel p3m (or --kernel pm "
-                    "with --pm-cutoff > 0)"
-                )
         if self.pm_replan and not (
             self.kernel == "p3m"
             or (self.kernel == "pm" and self.pm_cutoff)
@@ -161,8 +135,7 @@ class SimConfig:
             )
         if self.kernel in ("pm", "p3m") and self.precision == "bf16":
             # The mesh solver is fp32-only; silently running fp32 while
-            # reporting bf16 would misrepresent the configuration
-            # (mirrors pallas_mxu's bf16 rejection).
+            # reporting bf16 would misrepresent the configuration.
             raise ValueError(
                 f"--kernel {self.kernel} is fp32-only; it does not support "
                 "--precision bf16 (use --kernel pallas for the bf16 "
@@ -213,11 +186,7 @@ class SimConfig:
 
         resolved = resolve(self.kernel)
         opts = {}
-        # The rdma / ring_sym comm modes run Pallas kernels regardless of
-        # the resolved self-kernel (e.g. kernel=auto resolving to naive on
-        # CPU), so their tile/interpret options must flow through too.
-        pallas_comm = self.shards > 1 and self.comm in ("rdma", "ring_sym")
-        if resolved in ("pallas", "pallas_mxu", "pallas_sym") or pallas_comm:
+        if resolved == "pallas":
             if self.tile_i:
                 opts["tile_i"] = self.tile_i
             if self.tile_j:
@@ -249,20 +218,6 @@ class SimConfig:
         return opts
 
     def pad_multiple(self) -> int:
-        """Particle-count padding needed by kernel tiles and sharding."""
-        import math
-
-        from .ops.pallas_kernel import DEFAULT_TILE_I, DEFAULT_TILE_J
-        from .ops.registry import resolve
-
-        ti = self.tile_i or DEFAULT_TILE_I
-        tj = self.tile_j or DEFAULT_TILE_J
-        resolved = resolve(self.kernel)
-        if resolved in ("naive", "pm", "p3m"):
-            ti = tj = 1
-        elif resolved == "pallas_sym":
-            from .ops.pallas_sym import DEFAULT_BLOCK
-
-            ti = self.tile_i or DEFAULT_BLOCK  # square blocks; tj unused
-            tj = 1
-        return math.lcm(ti, tj) * max(1, self.shards)
+        """Particle-count padding needed by sharding (every kernel pads
+        its own tiles inside)."""
+        return max(1, self.shards)

@@ -80,7 +80,7 @@ def make_ensemble_block_fn(
     (batched FFTs).  With ``mesh``, the member axis is split via
     ``shard_map`` so each device runs its E/K members WHOLE — no
     collectives, and no reliance on GSPMD auto-partitioning the member
-    programs (it cannot split an FFT or a Mosaic kernel without
+    programs (it cannot split an FFT or a Pallas kernel without
     inserting all-gathers; whole-member placement sidesteps that
     entirely).  E must divide the mesh size."""
     blk = make_block_fn(accel_fn, dt, steps, integrator=integrator)
@@ -89,11 +89,6 @@ def make_ensemble_block_fn(
         return jax.jit(vblk)
 
     from jax.sharding import PartitionSpec as P
-
-    try:  # jax >= 0.6 exposes shard_map at top level
-        shard_map = jax.shard_map
-    except AttributeError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
 
     ax = axis or mesh.axis_names[0]
     k = mesh.shape[ax]
@@ -109,14 +104,11 @@ def make_ensemble_block_fn(
                                          n=n))
             return out.pos, out.vel, out.mass, ke
 
-        kw = dict(mesh=mesh, in_specs=(spec, spec, spec),
-                  out_specs=(spec, spec, spec, spec))
-        try:
-            # Pallas calls don't carry varying-mesh-axes metadata yet;
-            # disable the replication checker (check_rep pre-0.7).
-            smf = shard_map(local_members, check_vma=False, **kw)
-        except TypeError:  # pragma: no cover
-            smf = shard_map(local_members, check_rep=False, **kw)
+        # Pallas calls carry no varying-mesh-axes metadata; disable the
+        # replication checker.
+        smf = jax.shard_map(local_members, mesh=mesh, check_vma=False,
+                            in_specs=(spec, spec, spec),
+                            out_specs=(spec, spec, spec, spec))
         return jax.jit(smf)
 
     def run(ens: ParticleState):

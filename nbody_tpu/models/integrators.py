@@ -2,7 +2,7 @@
 
 The reference has exactly one: semi-implicit Euler
 (ver0/GSimulation.cpp:153-161), kept as the default for parity.  The
-kick-drift-kick leapfrog is a TPU-native extension: symplectic (bounded
+kick-drift-kick leapfrog is an extension: symplectic (bounded
 energy error instead of Euler's secular drift) at the same one force
 evaluation per step, with the acceleration carried through the fused
 sample-block loop.

@@ -8,7 +8,7 @@ rollout as a ``lax.scan`` of (optionally rematerialized) steps:
 * ``remat=True`` wraps each step in ``jax.checkpoint`` so the backward
   pass recomputes forces instead of storing O(steps) pair-kernel
   residuals — peak memory O(1) states per step at 2x forward FLOPs, the
-  standard TPU memory/compute trade.
+  standard accelerator memory/compute trade.
 
 The step uses the same semi-implicit Euler or leapfrog semantics as the
 simulation engine; the acceleration function should be wrapped with the

@@ -10,30 +10,17 @@ With a_i = sum_j G m_j f(p_j - p_i),  f(r) = r (|r|^2 + eps)^(-3/2):
 
 where g is the output cotangent.  Both terms are pair sums with the same
 distance geometry as the forward kernel; they are evaluated here as one
-chunked jnp sweep (XLA-fused, O(chunk*N) memory).  The i==k diagonal
-appears identically in both position terms and cancels exactly, so it is
-left unmasked — consistent with the forward kernel's unmasked diagonal
+chunked jnp sweep (XLA-fused, O(chunk*N) memory), which is itself
+differentiable, so higher-order derivatives fall out of autodiff.  The
+i==k diagonal appears identically in both position terms and cancels
+exactly, so it is left unmasked — consistent with the forward kernel's unmasked diagonal
 (ver0/GSimulation.cpp:132-147).
-
-Two backward implementations share the math:
-
-* ``force_vjp``        — chunked jnp sweep (XLA-fused; itself differentiable,
-                         so higher-order derivatives fall out of autodiff);
-* ``force_vjp_pallas`` — a Pallas kernel in the same winning orientation as
-                         the forward (targets on sublanes, sources on lanes,
-                         lane-axis reductions) computing all three cotangent
-                         terms in one pass.  Measured ~6x faster than the
-                         jnp sweep on v5e at N=16384.
-
-``differentiable(..., backward='auto')`` picks the Pallas backward on TPU.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..types import G_NEWTON, SOFTENING_SQUARED
 from .naive import _largest_divisor_leq
@@ -99,113 +86,10 @@ def force_vjp(pos: jax.Array, mass: jax.Array, g: jax.Array,
     )
 
 
-def _vjp_kernel(tk_ref, sj_ref, out_ref):
-    """Pallas backward: targets (TI, 8) = [x, y, z, gx, gy, gz, 0, 0] on
-    sublanes; sources (8, TJ) = [x, y, z, G*m, gx, gy, gz, 0] on lanes;
-    out (TI, 8) accumulates [A_x, A_y, A_z, B_x, B_y, B_z, dm_raw, 0] where
-    d_pos = gm_k * A - B and d_mass = -G * dm_raw (combined outside)."""
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    f32 = jnp.float32
-    tk = tk_ref[...]
-    xk, yk, zk = tk[:, 0:1], tk[:, 1:2], tk[:, 2:3]  # (TI, 1)
-    gkx, gky, gkz = tk[:, 3:4], tk[:, 4:5], tk[:, 5:6]
-    xj = sj_ref[0:1, :]  # (1, TJ)
-    yj = sj_ref[1:2, :]
-    zj = sj_ref[2:3, :]
-    gmj = sj_ref[3:4, :]
-    gjx = sj_ref[4:5, :]
-    gjy = sj_ref[5:6, :]
-    gjz = sj_ref[6:7, :]
-
-    rx = xj - xk  # (TI, TJ), r = p_j - p_k
-    ry = yj - yk
-    rz = zj - zk
-    u = rx * rx + ry * ry + rz * rz + f32(SOFTENING_SQUARED)
-    inv = jax.lax.rsqrt(u)
-    s = inv * inv * inv
-    q = f32(3.0) * s * (inv * inv)
-    rgj = rx * gjx + ry * gjy + rz * gjz
-    rgk = rx * gkx + ry * gky + rz * gkz
-    cj = q * rgj
-    ck = q * rgk
-
-    def lsum(x):
-        return jnp.sum(x, axis=1, keepdims=True)
-
-    out_ref[:, 0:1] += lsum(s * gjx - cj * rx)
-    out_ref[:, 1:2] += lsum(s * gjy - cj * ry)
-    out_ref[:, 2:3] += lsum(s * gjz - cj * rz)
-    out_ref[:, 3:4] += lsum(gmj * (s * gkx - ck * rx))
-    out_ref[:, 4:5] += lsum(gmj * (s * gky - ck * ry))
-    out_ref[:, 5:6] += lsum(gmj * (s * gkz - ck * rz))
-    out_ref[:, 6:7] += lsum(rgj * s)
-
-
-def force_vjp_pallas(
-    pos: jax.Array,
-    mass: jax.Array,
-    g: jax.Array,
-    tile_i: int = 512,
-    tile_j: int = 1024,
-    interpret: bool = False,
-) -> tuple[jax.Array, jax.Array]:
-    """Pallas-kernel backward; same contract as force_vjp."""
-    n = pos.shape[1]
-    f32 = jnp.float32
-    ti = min(tile_i, n)
-    tj = min(tile_j, n)
-    if n % ti or n % tj:
-        raise ValueError(f"N={n} must be divisible by tiles ({ti},{tj})")
-    gm = (mass * f32(G_NEWTON)).astype(f32)
-    zeros = jnp.zeros((n,), f32)
-    targets = jnp.stack(
-        [pos[0], pos[1], pos[2], g[0], g[1], g[2], zeros, zeros], axis=1
-    )  # (N, 8)
-    sources = jnp.stack(
-        [pos[0], pos[1], pos[2], gm, g[0], g[1], g[2], zeros], axis=0
-    )  # (8, N)
-    out = pl.pallas_call(
-        _vjp_kernel,
-        grid=(n // ti, n // tj),
-        in_specs=[
-            pl.BlockSpec((ti, 8), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, tj), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (ti, 8), lambda i, j: (i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((n, 8), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=45 * n * n,
-            bytes_accessed=(n * n // ti) * 64 + n * 128,
-            transcendentals=n * n,
-        ),
-        interpret=interpret,
-    )(targets, sources)
-    a = out[:, 0:3].T  # (3, N)
-    b = out[:, 3:6].T
-    d_pos = gm[None, :] * a - b
-    d_mass = -f32(G_NEWTON) * out[:, 6]
-    return d_pos, d_mass
-
-
-def differentiable(accel_fn, chunk: int = 1024, backward: str = "auto",
-                   interpret: bool = False, tile_i: int = 512,
-                   tile_j: int = 1024):
-    """Wrap a (pos, mass) -> acc kernel with the analytic custom VJP.
-
-    backward: 'jnp' (chunked sweep), 'pallas' (kernel), or 'auto'
-    (pallas on TPU, jnp elsewhere).  tile_i/tile_j size the Pallas
-    backward's grid — tune with
-    ``utils.autotune.autotune_tiles(n, family='backward')``."""
+def differentiable(accel_fn, chunk: int = 1024):
+    """Wrap a (pos, mass) -> acc kernel with the analytic custom VJP
+    (``force_vjp``), which also makes the Pallas kernel differentiable
+    (XLA cannot autodiff through ``pallas_call``)."""
 
     @jax.custom_vjp
     def accel(pos, mass):
@@ -216,12 +100,6 @@ def differentiable(accel_fn, chunk: int = 1024, backward: str = "auto",
 
     def bwd(res, g):
         pos, mass = res
-        mode = backward
-        if mode == "auto":
-            mode = "pallas" if jax.default_backend() == "tpu" else "jnp"
-        if mode == "pallas":
-            return force_vjp_pallas(pos, mass, g, tile_i=tile_i,
-                                    tile_j=tile_j, interpret=interpret)
         return force_vjp(pos, mass, g, chunk=chunk)
 
     accel.defvjp(fwd, bwd)

@@ -1,33 +1,28 @@
-"""Tiled Pallas TPU force kernel — the analog of the reference's entire
-single-device optimization ladder (ver3-ver8).
+"""Tiled all-pairs force kernel for the GPU, through Pallas on the Triton
+route — the analog of the reference's whole single-device optimisation
+ladder (ver3-ver8: SoA layout, SIMD reductions, cache tiling, threading).
 
-What the reference achieves with SoA conversion (ver3/Particle.hpp:43-59),
-SIMD reductions (ver4/GSimulation.cpp:142-146), aligned allocation
-(ver5/GSimulation.cpp:102-114), cache tiling (ver6/GSimulation.cpp:136-171)
-and OpenMP threading (ver7/GSimulation.cpp:141,179) is expressed here as one
-Pallas grid:
+The design is the standard tiled all-pairs GPU sweep (Nyland, Harris &
+Prins, GPU Gems 3 ch. 31):
 
-* grid = (Nt/TILE_I, Ns/TILE_J) with j minor-most, so each i-tile's output
-  block stays resident in VMEM while j-tiles stream through the Pallas
-  pipeline (double-buffered DMA — the ver6 cache-tiling analog, with the
-  pipeline doing what `_mm_malloc` alignment did);
-* pair matrices are (TILE_I, TILE_J): targets on sublanes, sources on
-  lanes, so the j-reduction is a LANE-axis sum.  Measured on v5e this
-  orientation beats the sublane-reduction transpose by ~45% (188 vs 128
-  Gpairs/s at N=131072; 211 Gpairs/s at N=16384 with TJ=2048) — with
-  long lane tiles the VPU reduces along its native axis;
-* particle data is packed twice for transpose-free broadcasting:
-  column-major (N, 8) rows for the i-tile (each target's coords read as
-  (TILE_I, 1) columns) and row-major (8, N) for the j-tile (source coords
-  and G*mass as (1, TILE_J) lane vectors);
-* fp32 accumulation into the resident output block (the ver4
-  `omp simd reduction` analog).
+* particles live in a (4, N) float32 SoA table, rows [x, y, z, G*m]
+  (16 B per particle; ``pack_particles``);
+* the grid has one program per block of ``tile_i`` targets, whose
+  coordinates stay in registers;
+* inside the program a ``fori_loop`` streams the sources in tiles of
+  ``tile_j`` (Triton pipelines those loads over ``num_stages``), forms
+  the (tile_i, tile_j) pair matrix and adds it into element-wise float32
+  accumulators held in registers, which are reduced over sources once,
+  after the loop;
+* the tails are zero-mass padding up to a whole block: a zero-mass
+  source adds exactly zero, and padded targets are sliced off, so any N
+  runs.
 
 Self-interaction is included: dx=dy=dz=0 makes the term exactly zero
 (matches ver0/GSimulation.cpp:132-147; do not mask the diagonal).
 
-``dist_dtype='bfloat16'`` computes pair deltas in bf16 with fp32
-accumulation (BASELINE.md config 3).
+``dist_dtype='bfloat16'`` subtracts in float32, rounds the delta to bf16
+and computes the rest in float32 (BASELINE.md config 3).
 """
 
 from __future__ import annotations
@@ -37,78 +32,69 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..types import G_NEWTON, SOFTENING_SQUARED
 
-# Defaults from on-device sweeps (v5e, N=16k-131k, in-loop difference
-# timing).  (512, 2048) maximizes sustained pair rate; VMEM holds the
-# (TILE_I, TILE_J) fp32 pair matrices at 4 MB each.
-DEFAULT_TILE_I = 512
-DEFAULT_TILE_J = 2048
-
-# A single kernel execution much longer than ~1 min can trip TPU-runtime
-# execution watchdogs (observed at N=4M unsharded).  Above this many
-# pairs the sweep is dispatched as several sequential pallas_calls over
-# target chunks — ~6 s each at the kernel's ~190 Gpairs/s — so arbitrary
-# N (BASELINE config 5: N=4M) runs on one chip.
-MAX_PAIRS_PER_CALL = 1 << 40
+# Measured best of the (tile_i, tile_j, num_warps) sweep on an H100 at
+# N=16384 and N=262144 (PERF.md).
+DEFAULT_TILE_I = 32
+DEFAULT_TILE_J = 32
 
 
-def _nbody_kernel(psit_ref, psj_ref, out_ref, *, dist_dtype):
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
+def _nbody_kernel(tgt_ref, src_ref, out_ref, *, tile_j, dist_dtype):
     f32 = jnp.float32
-    pi = psit_ref[...]  # (TI, 8)
-    xi = pi[:, 0:1]  # (TI, 1) — broadcast across lanes
-    yi = pi[:, 1:2]
-    zi = pi[:, 2:3]
-    xj = psj_ref[0:1, :]  # (1, TJ) — broadcast across sublanes
-    yj = psj_ref[1:2, :]
-    zj = psj_ref[2:3, :]
-    gm = psj_ref[3:4, :]
+    xi = tgt_ref[0, :][:, None]  # (TI, 1)
+    yi = tgt_ref[1, :][:, None]
+    zi = tgt_ref[2, :][:, None]
 
-    if dist_dtype == jnp.bfloat16:
-        # Deltas subtract in f32 and only then narrow: casting positions
-        # first would catastrophically cancel for near pairs.
-        dx = (xj - xi).astype(jnp.bfloat16)
-        dy = (yj - yi).astype(jnp.bfloat16)
-        dz = (zj - zi).astype(jnp.bfloat16)
-        d2 = (
-            dx.astype(f32) * dx.astype(f32)
-            + dy.astype(f32) * dy.astype(f32)
-            + dz.astype(f32) * dz.astype(f32)
-            + f32(SOFTENING_SQUARED)
-        )
-        dx, dy, dz = dx.astype(f32), dy.astype(f32), dz.astype(f32)
-    else:
+    def body(j, acc):
+        ax, ay, az = acc
+        cols = pl.ds(pl.multiple_of(j * tile_j, tile_j), tile_j)
+        xj = src_ref[0, cols][None, :]  # (1, TJ)
+        yj = src_ref[1, cols][None, :]
+        zj = src_ref[2, cols][None, :]
+        gm = src_ref[3, cols][None, :]
         dx = xj - xi  # (TI, TJ)
         dy = yj - yi
         dz = zj - zi
+        if dist_dtype == jnp.bfloat16:
+            # Subtract in f32 and only then narrow: casting positions
+            # first would catastrophically cancel for near pairs.
+            dx = dx.astype(jnp.bfloat16).astype(f32)
+            dy = dy.astype(jnp.bfloat16).astype(f32)
+            dz = dz.astype(jnp.bfloat16).astype(f32)
         d2 = dx * dx + dy * dy + dz * dz + f32(SOFTENING_SQUARED)
+        inv = jax.lax.rsqrt(d2)
+        w = gm * (inv * inv * inv)
+        return ax + w * dx, ay + w * dy, az + w * dz
 
-    inv = jax.lax.rsqrt(d2)
-    w = gm * (inv * inv * inv)  # (TI, TJ)
+    # Element-wise (TI, TJ) accumulators, reduced over sources once after
+    # the loop: a cross-thread reduction inside the loop measured ~4x
+    # slower on an H100 (PERF.md).
+    zero = jnp.zeros((tgt_ref.shape[1], tile_j), f32)
+    n_tiles = src_ref.shape[1] // tile_j
+    ax, ay, az = jax.lax.fori_loop(0, n_tiles, body, (zero, zero, zero))
+    out_ref[0, :] = jnp.sum(ax, axis=1)
+    out_ref[1, :] = jnp.sum(ay, axis=1)
+    out_ref[2, :] = jnp.sum(az, axis=1)
+    out_ref[3, :] = jnp.zeros((tgt_ref.shape[1],), f32)
 
-    # Lane-axis (j) reductions -> (TI, 1) columns, accumulated in fp32.
-    out_ref[:, 0:1] += jnp.sum(w * dx, axis=1, keepdims=True)
-    out_ref[:, 1:2] += jnp.sum(w * dy, axis=1, keepdims=True)
-    out_ref[:, 2:3] += jnp.sum(w * dz, axis=1, keepdims=True)
 
-
-def pack_particles(pos: jax.Array, mass: jax.Array) -> jax.Array:
-    """Pack (3,N) positions + (N,) masses into the kernel's (8,N) layout:
-    rows [x, y, z, G*m, 0, 0, 0, 0]."""
+def pack_particles(pos: jax.Array, mass: jax.Array, multiple: int) -> jax.Array:
+    """(3,N) positions + (N,) masses -> the kernel's (4, N') table, rows
+    [x, y, z, G*m], zero-padded to N' = the next multiple of ``multiple``
+    (padding has zero mass, so it is force-neutral as a source)."""
     n = pos.shape[1]
     gm = (mass * jnp.float32(G_NEWTON)).astype(jnp.float32)
-    return jnp.concatenate(
-        [pos.astype(jnp.float32), gm[None, :], jnp.zeros((4, n), jnp.float32)],
-        axis=0,
-    )
+    table = jnp.concatenate([pos.astype(jnp.float32), gm[None, :]], axis=0)
+    return jnp.pad(table, ((0, 0), (0, -n % multiple)))
+
+
+def _num_warps(tile_i: int, tile_j: int) -> int:
+    # 8-16 pair elements per thread, at most 4 warps: each element holds
+    # three accumulators in registers, and more warps measured slower.
+    return max(1, min(4, tile_i * tile_j // 256))
 
 
 def accelerations_between(
@@ -119,76 +105,42 @@ def accelerations_between(
     tile_j: int = DEFAULT_TILE_J,
     dist_dtype: str = "float32",
     interpret: bool = False,
-    max_pairs_per_call: int = MAX_PAIRS_PER_CALL,
 ) -> jax.Array:
-    """Accelerations of targets due to sources via the tiled Pallas kernel.
+    """Accelerations of targets due to sources via the tiled kernel.
 
     pos_tgt (3, Nt), pos_src (3, Ns), mass_src (Ns,) -> (3, Nt) fp32.
-    Nt/Ns must be divisible by tile_i/tile_j respectively (pad with
-    zero-mass particles; see state.pad_state).  Sweeps above
-    ``max_pairs_per_call`` pairs are dispatched as several sequential
-    pallas_calls over target chunks (watchdog safety at N >= ~2M; pass 0
-    to force a single call).
-    """
+    Any Nt, Ns: both are zero-padded to whole tiles inside.  Tiles are
+    powers of two (Triton's block shapes); ``interpret=True`` runs the
+    kernel in the Pallas interpreter (the CPU test path)."""
+    for name, t in (("tile_i", tile_i), ("tile_j", tile_j)):
+        if t < 1 or t & (t - 1):
+            raise ValueError(f"{name}={t} must be a power of two")
     nt = pos_tgt.shape[1]
-    ns = pos_src.shape[1]
-    ti = min(tile_i, nt)
-    tj = min(tile_j, ns)
-    if nt % ti or ns % tj:
-        raise ValueError(
-            f"particle counts ({nt},{ns}) must be divisible by tiles ({ti},{tj})"
-        )
-    # Targets column-major (Nt, 8); sources row-major (8, Ns).
-    ps_it = pack_particles(pos_tgt, jnp.zeros((nt,), jnp.float32)).T
-    ps_j = pack_particles(pos_src, mass_src)
+    tgt = pack_particles(pos_tgt, jnp.zeros((nt,), jnp.float32), tile_i)
+    src = pack_particles(pos_src, mass_src, tile_j)
+    nt_pad, ns_pad = tgt.shape[1], src.shape[1]
     ddt = jnp.dtype(dist_dtype)
-
-    limit = max_pairs_per_call or (nt * ns)
-    if nt * ns > limit and nt > ti:
-        # Watchdog-safe chunked dispatch: sequential pallas_calls over
-        # target chunks, each bounded in execution time.  Chunk sizes are
-        # tile-exact multiples, so results are bit-identical to the
-        # single-call sweep (same tiles, same accumulation order).
-        per = max(ti, limit // ns // ti * ti)
-        outs = [
-            _pair_sweep(ps_it[i0:i0 + min(per, nt - i0)], ps_j, ti, tj,
-                        ddt, interpret)
-            for i0 in range(0, nt, per)
-        ]
-        out = jnp.concatenate(outs, axis=0)
-    else:
-        out = _pair_sweep(ps_it, ps_j, ti, tj, ddt, interpret)
-    return out[:, 0:3].T
-
-
-def _pair_sweep(ps_it, ps_j, ti, tj, ddt, interpret):
-    """One pallas_call of the tiled sweep: (Nt,8) targets x (8,Ns)
-    sources -> (Nt,8) accelerations."""
-    nt = ps_it.shape[0]
-    ns = ps_j.shape[1]
-    grid = (nt // ti, ns // tj)
-    flops_per_pair = 20 if ddt == jnp.float32 else 23
-    return pl.pallas_call(
-        functools.partial(_nbody_kernel, dist_dtype=ddt),
-        grid=grid,
+    out = pl.pallas_call(
+        functools.partial(_nbody_kernel, tile_j=tile_j, dist_dtype=ddt),
+        grid=(nt_pad // tile_i,),
         in_specs=[
-            pl.BlockSpec((ti, 8), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, tj), lambda i, j: (0, j), memory_space=pltpu.VMEM),
+            pl.BlockSpec((4, tile_i), lambda i: (0, i)),
+            pl.BlockSpec((4, ns_pad), lambda i: (0, 0)),
         ],
-        out_specs=pl.BlockSpec(
-            (ti, 8), lambda i, j: (i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((nt, 8), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
+        out_specs=pl.BlockSpec((4, tile_i), lambda i: (0, i)),
+        out_shape=jax.ShapeDtypeStruct((4, nt_pad), jnp.float32),
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_num_warps(tile_i, tile_j), num_stages=2),
         cost_estimate=pl.CostEstimate(
-            flops=flops_per_pair * nt * ns,
-            bytes_accessed=(nt * ns // ti) * 32 + (nt + ns) * 64,
-            transcendentals=nt * ns,
+            flops=20 * nt_pad * ns_pad,
+            bytes_accessed=16 * (nt_pad // tile_i) * ns_pad + 32 * nt_pad,
+            transcendentals=nt_pad * ns_pad,
         ),
+        backend="triton",
         interpret=interpret,
-    )(ps_it, ps_j)
+        name="nbody_pairs",
+    )(tgt, src)
+    return out[0:3, :nt]
 
 
 def accelerations(pos: jax.Array, mass: jax.Array, **opts) -> jax.Array:

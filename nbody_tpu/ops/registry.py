@@ -6,15 +6,16 @@ Here backend selection is a runtime registry keyed by name; all kernels share
 the signature ``fn(pos (3,N) f32, mass (N,) f32, **opts) -> acc (3,N) f32``.
 
 Registered kernels:
-* ``naive``      — broadcasted jnp, XLA-fused (ver0-2 analog; oracle)
-* ``pallas``     — tiled Pallas VMEM-streaming kernel (ver3-8 analog)
-* ``pallas_sym`` — pair-symmetric sweep, each unordered pair once
-  (~1.38x measured over ``pallas``; fp32, N <= pallas_sym.max_sym_n())
-* ``pallas_mxu`` — documented negative result (docs/DESIGN.md)
-* ``pm``         — particle-mesh FFT solver, O(N log N) approximate
-  far-field tier (opt-in; never chosen by ``auto``)
-* ``auto``       — best EXACT self-kernel for the backend/shape at trace
-  time (TPU: pallas_sym when eligible, else pallas; elsewhere naive)
+* ``naive``  — broadcasted jnp, XLA-fused (ver0-2 analog; the reference
+  every other kernel is checked against)
+* ``pallas`` — tiled GPU pair kernel, Pallas on the Triton route (ver3-8
+  analog)
+* ``pm``     — particle-mesh FFT solver, O(N log N) approximate far-field
+  tier (opt-in; never chosen by ``auto``)
+* ``p3m``    — pm plus the exact short-range correction (opt-in)
+* ``auto``   — the exact self-kernel for the backend: ``pallas`` on a GPU
+  (it beats ``naive`` there at N=16384 and N=1M, PERF.md), ``naive``
+  elsewhere (a Triton kernel compiles only for a GPU)
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Callable, Dict
 
 import jax
 
-from . import naive, pallas_kernel, pallas_mxu, pallas_sym, pm
+from . import naive, pallas_kernel, pm
 
 KernelFn = Callable[..., jax.Array]
 
@@ -39,30 +40,15 @@ def available() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY)) + ("auto",)
 
 
-def resolve(name: str, n: int = None, dist_dtype: str = "float32") -> str:
-    """Resolve ``auto`` to a concrete kernel name.  Without ``n`` this is
-    the coarse backend-level answer (the exact per-shape choice happens at
-    trace time in ``_auto_self``); with ``n`` (the padded particle count)
-    it also resolves the pallas/pallas_sym split, which autotuning needs."""
+def resolve(name: str) -> str:
+    """Resolve ``auto`` to a concrete kernel name for the default backend."""
     if name != "auto":
         return name
-    if jax.default_backend() != "tpu":
-        return "naive"
-    import jax.numpy as jnp
-
-    if (
-        n is not None
-        and jnp.dtype(dist_dtype) in (jnp.float32, jnp.bfloat16)
-        and n <= pallas_sym.max_sym_n()
-    ):
-        return "pallas_sym"
-    return "pallas"
+    return "pallas" if jax.default_backend() == "gpu" else "naive"
 
 
 def get(name: str) -> KernelFn:
     """Self-acceleration kernel: fn(pos (3,N), mass (N,), **opts) -> (3,N)."""
-    if name == "auto":
-        return _auto_self
     return _lookup(name)[0]
 
 
@@ -81,38 +67,8 @@ def _lookup(name: str):
         ) from None
 
 
-def _auto_self(pos, mass, **opts):
-    """``auto`` self-kernel: dispatch on backend + traced shape.  The
-    pair-symmetric kernel wins ~1.38x whenever it applies (fp32 or
-    bf16-distance, padded N divisible by its block and small enough to
-    sit in VMEM); the streaming tiled kernel covers everything else."""
-    import jax.numpy as jnp
-
-    n = pos.shape[1]
-    opts = dict(opts)
-    # Honor an explicit block/tile_i; otherwise use pallas_sym's VMEM-aware
-    # auto pick (b=512 above ~786k) so huge-N auto dispatch stays inside
-    # the 128 MB v5e VMEM instead of forcing DEFAULT_BLOCK.
-    block = opts.pop("block", 0) or opts.get("tile_i", 0) or pallas_sym.auto_block(n)
-    if (
-        jax.default_backend() == "tpu"
-        and jnp.dtype(opts.get("dist_dtype", "float32"))
-        in (jnp.float32, jnp.bfloat16)
-        and n <= pallas_sym.max_sym_n()
-        and n % min(block, n) == 0
-    ):
-        return pallas_sym.accelerations(pos, mass, block=block, **opts)
-    if jax.default_backend() == "tpu":
-        return pallas_kernel.accelerations(pos, mass, **opts)
-    return naive.accelerations(pos, mass, **opts)
-
-
 register("naive", naive.accelerations, naive.accelerations_between)
 register("pallas", pallas_kernel.accelerations, pallas_kernel.accelerations_between)
-register("pallas_mxu", pallas_mxu.accelerations, pallas_mxu.accelerations_between)
-# Pair-symmetric self-sweep; target/source pairs have no symmetry to
-# exploit, so the between form delegates to the standard tiled kernel.
-register("pallas_sym", pallas_sym.accelerations, pallas_sym.accelerations_between)
 # Mesh-based O(N log N) far-field solver (opt-in: approximate, so `auto`
 # never selects it — the exact pair kernels are the parity surface).
 register("pm", pm.accelerations, pm.accelerations_between)

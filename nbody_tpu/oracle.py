@@ -2,7 +2,7 @@
 
 This module exists for one purpose: to reproduce the compiled C++ reference's
 trajectory (and hence its kinetic-energy trace) *exactly*, operation for
-operation, so the TPU kernels have a trustworthy fidelity anchor.  The
+operation, so the device kernels have a trustworthy fidelity anchor.  The
 system is chaotic — by step 500 any reordering of fp32 sums diverges
 macroscopically — so "to 1e-4 relative" at step 500 effectively means
 bit-exact replication of ver0's mixed fp32/fp64 arithmetic

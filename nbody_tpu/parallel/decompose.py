@@ -1,5 +1,5 @@
-"""GSPMD particle decomposition — the TPU-native replacement for the
-reference's MPI layer (ver5_all/GSimulation.cpp:93-214).
+"""GSPMD particle decomposition — the replacement for the reference's MPI
+layer (ver5_all/GSimulation.cpp:93-214).
 
 The reference's distributed step is replicated-state/partitioned-compute:
 rank 0 broadcasts all nine state arrays every step (``mpi_bcast_all``
@@ -10,7 +10,8 @@ and never round-trips through a root:
 
 * ``comm='allgather'`` — each shard all-gathers positions+masses once per
   step and computes forces for its local i-slice (the Bcast analog, but
-  peer-to-peer over ICI and fused into the jitted step).
+  peer-to-peer — NCCL over NVLink on a GPU host — and fused into the
+  jitted step).
 * ``comm='ring'``      — positions stay sharded; a K-1-hop ``ppermute``
   ring streams each source block through every shard while the pair
   kernel consumes the previous block, so per-shard working memory is
@@ -36,11 +37,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..state import ParticleState
 from .mesh import AXIS, make_mesh
-
-try:  # jax >= 0.6 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 
 def state_specs() -> ParticleState:
@@ -103,67 +99,14 @@ def _accel_ring(between_fn, pos_l, mass_l):
     return acc
 
 
-def _accel_ring_sym(pos_l, mass_l, self_fn, two_sided_fn):
-    """Half-ring with pair symmetry: each unordered SHARD pair is
-    computed exactly once, by one of its two members, with the reaction
-    forces riding the ring buffer back home — both the pair compute and
-    the hop count are ~halved vs the plain ring (the multi-chip analog
-    of ops/pallas_sym.py's F_ij = -F_ji trick).
-
-    Per step: the diagonal shard block runs the local pair-symmetric
-    kernel; floor((K-1)/2) forward hops stream (positions, masses,
-    reaction-accumulator) right, each hop evaluating one two-sided block
-    pair; for even K one extra hop covers the antipodal pairs on half
-    the shards (masked on the rest); finally one ppermute returns each
-    accumulated reaction to its home shard."""
-    k = lax.axis_size(AXIS)
-    nl = pos_l.shape[1]
-    acc = self_fn(pos_l, mass_l)
-    if k == 1:
-        return acc
-    fwd = [(i, (i + 1) % k) for i in range(k)]
-    buf = jnp.concatenate(
-        [pos_l, mass_l[None, :], jnp.zeros((3, nl), pos_l.dtype)], axis=0
-    )  # (7, Nl): source block + its traveling reaction accumulator
-    h_max = (k - 1) // 2
-    for _ in range(h_max):
-        buf = lax.ppermute(buf, AXIS, fwd)
-        a_t, a_s = two_sided_fn(pos_l, mass_l, buf[0:3], buf[3])
-        acc = acc + a_t
-        buf = buf.at[4:7].add(a_s)
-    h_final = h_max
-    if k % 2 == 0:
-        # Antipodal pairs (distance K/2) are seen by both members; let
-        # the lower-indexed one compute both sides, mask the other.
-        buf = lax.ppermute(buf, AXIS, fwd)
-        a_t, a_s = two_sided_fn(pos_l, mass_l, buf[0:3], buf[3])
-        keep = jnp.where(lax.axis_index(AXIS) < k // 2,
-                         jnp.float32(1), jnp.float32(0))
-        acc = acc + a_t * keep
-        buf = buf.at[4:7].add(a_s * keep)
-        h_final += 1
-    # One hop home: the block (and its reactions) sits h_final shards
-    # ahead of its owner.
-    back = [(i, (i - h_final) % k) for i in range(k)]
-    react = lax.ppermute(buf[4:7], AXIS, back)
-    return acc + react
-
-
 _ACCEL_MODES = {"allgather": _accel_allgather, "ring": _accel_ring}
 
 
 def make_sharded_block_fn(kernel_name: str, kernel_opts: dict, dt: float,
                           block_steps: int, mesh: Mesh, comm: str = "allgather",
-                          integrator: str = "euler",
-                          external_env: bool = False):
+                          integrator: str = "euler"):
     """Jitted sample block over a particle-sharded state: advances
-    ``block_steps`` steps fully on device and returns (state, kenergy).
-
-    ``external_env=True`` (mesh kernels only) moves the per-block frozen
-    mesh environment from inside the block to a ``run(state, env)``
-    argument (plus ``run.make_env(state)`` to build it), so a host-side
-    watchdog sub-block loop can freeze ONE env for the whole outer
-    sample block — physics identical to the monolithic block."""
+    ``block_steps`` steps fully on device and returns (state, kenergy)."""
     from ..models.integrators import INTEGRATORS
     from ..ops import registry
 
@@ -171,10 +114,9 @@ def make_sharded_block_fn(kernel_name: str, kernel_opts: dict, dt: float,
         raise ValueError(f"unknown integrator {integrator!r}")
 
     if kernel_name in ("pm", "p3m") and comm != "allgather":
-        # The mesh solver needs every target inside the source box; ring
-        # modes (incl. rdma/ring_sym, which would silently substitute
-        # exact Pallas kernels) stream source BLOCKS whose bounding boxes
-        # do not cover remote targets.
+        # The mesh solver needs every target inside the source box; the
+        # ring streams source BLOCKS whose bounding boxes do not cover
+        # remote targets.
         raise ValueError(
             f"--kernel {kernel_name} supports only --comm allgather "
             "when sharded"
@@ -217,46 +159,6 @@ def make_sharded_block_fn(kernel_name: str, kernel_opts: dict, dt: float,
             return pm_ops.sharded_accelerations(p, m, AXIS,
                                                 mesh_env=env, **popts)
 
-    elif comm == "rdma":
-        # The fused in-kernel RDMA ring (ring_kernel.py).
-        from .ring_kernel import ring_accelerations
-
-        k = int(mesh.shape[AXIS])
-        ropts = {
-            key: v
-            for key, v in kernel_opts.items()
-            if key in ("tile_i", "tile_j", "interpret")
-        }
-
-        make_env = None
-
-        def accel_local(p, m, env=None):
-            return ring_accelerations(p, m, k, **ropts)
-
-    elif comm == "ring_sym":
-        # Half-ring with pair symmetry (kernel choice is implied: the
-        # pair-symmetric kernels are what make the mode exist).
-        from ..ops import pallas_sym
-
-        # NOTE: do not name this `block` — the sample-block fn defined
-        # below rebinds that name in this scope (late-binding closures).
-        blk_size = kernel_opts.get("tile_i", 0)
-        interp = bool(kernel_opts.get("interpret", False))
-
-        def self_fn(p, m):
-            return pallas_sym.accelerations(p, m, block=blk_size,
-                                            interpret=interp)
-
-        def two_sided_fn(pt, mt, ps, ms):
-            return pallas_sym.accelerations_two_sided(
-                pt, mt, ps, ms, block=blk_size, interpret=interp
-            )
-
-        make_env = None
-
-        def accel_local(p, m, env=None):
-            return _accel_ring_sym(p, m, self_fn, two_sided_fn)
-
     else:
         between_fn = registry.get_between(kernel_name)
         if kernel_opts:
@@ -266,7 +168,7 @@ def make_sharded_block_fn(kernel_name: str, kernel_opts: dict, dt: float,
         except KeyError:
             raise ValueError(
                 f"unknown comm mode {comm!r}; options: "
-                f"{sorted(_ACCEL_MODES) + ['rdma', 'ring_sym']}"
+                f"{sorted(_ACCEL_MODES)}"
             ) from None
 
         make_env = None
@@ -304,62 +206,22 @@ def make_sharded_block_fn(kernel_name: str, kernel_opts: dict, dt: float,
         ke = lax.psum(jnp.float32(0.5) * jnp.sum(mass * v2), AXIS)
         return pos, vel, ke
 
-    if external_env:
-        if make_env is None:
-            raise ValueError("external_env requires a mesh kernel (pm/p3m)")
-        # The env (replicated pytree) enters as an ARGUMENT so a
-        # host-side sub-block loop can freeze it once per outer sample
-        # block — the same once-per-block semantics as the monolithic
-        # path below and the single-device host-chunked runner
-        # (models/gravity.py make_host_chunked_block_fn); re-freezing
-        # per sub-block would make the watchdog split physically
-        # observable (the box drifts between sub-blocks).
-        block = _steps
-        in_specs = (P(None, AXIS), P(None, AXIS), P(AXIS), P())
+    def block(pos, vel, mass):
+        env = make_env(pos, mass) if make_env is not None else None
+        return _steps(pos, vel, mass, env)
 
-        def _shmap(f, ispecs, ospecs):
-            try:
-                return shard_map(f, mesh=mesh, check_vma=False,
-                                 in_specs=ispecs, out_specs=ospecs)
-            except TypeError:  # pragma: no cover
-                return shard_map(f, mesh=mesh, check_rep=False,
-                                 in_specs=ispecs, out_specs=ospecs)
-
-        env_jitted = jax.jit(_shmap(
-            lambda pos, mass: make_env(pos, mass),
-            (P(None, AXIS), P(AXIS)), P()))
-    else:
-        def block(pos, vel, mass):
-            env = make_env(pos, mass) if make_env is not None else None
-            return _steps(pos, vel, mass, env)
-
-        in_specs = (P(None, AXIS), P(None, AXIS), P(AXIS))
-
-    specs = dict(
-        in_specs=in_specs,
+    # Pallas calls carry no varying-mesh-axes metadata; disable the
+    # replication checker.
+    sharded = jax.shard_map(
+        block, mesh=mesh, check_vma=False,
+        in_specs=(P(None, AXIS), P(None, AXIS), P(AXIS)),
         out_specs=(P(None, AXIS), P(None, AXIS), P()),
     )
-    try:
-        # Pallas calls don't carry varying-mesh-axes metadata yet; disable
-        # the replication checker (named check_rep before jax 0.7).
-        sharded = shard_map(block, mesh=mesh, check_vma=False, **specs)
-    except TypeError:  # pragma: no cover
-        sharded = shard_map(block, mesh=mesh, check_rep=False, **specs)
     jitted = jax.jit(sharded)
 
-    if external_env:
-        def run(state: ParticleState, env=None):
-            if env is None:
-                env = env_jitted(state.pos, state.mass)
-            pos, vel, ke = jitted(state.pos, state.vel, state.mass, env)
-            return (ParticleState(pos=pos, vel=vel, mass=state.mass,
-                                  n=state.n), ke)
-
-        run.make_env = lambda state: env_jitted(state.pos, state.mass)
-    else:
-        def run(state: ParticleState):
-            pos, vel, ke = jitted(state.pos, state.vel, state.mass)
-            return (ParticleState(pos=pos, vel=vel, mass=state.mass,
-                                  n=state.n), ke)
+    def run(state: ParticleState):
+        pos, vel, ke = jitted(state.pos, state.vel, state.mass)
+        return (ParticleState(pos=pos, vel=vel, mass=state.mass,
+                              n=state.n), ke)
 
     return run

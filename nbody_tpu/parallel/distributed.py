@@ -1,10 +1,10 @@
 """Multi-host initialization.
 
 The reference's process bootstrap is ``MPI_Init`` + rank/size bookkeeping
-(ver5_all/GSimulation.cpp:93-115).  On TPU pods the equivalent is
-``jax.distributed.initialize()``: every host then sees the global device
-set, and the same mesh/shard_map code paths work across ICI within a slice
-and DCN across slices with no transport code here."""
+(ver5_all/GSimulation.cpp:93-115).  The equivalent here is
+``jax.distributed.initialize()``: every process then sees the global
+device set, and the same mesh/shard_map code paths run over NCCL (NVLink
+within a host) with no transport code here."""
 
 from __future__ import annotations
 
@@ -22,8 +22,8 @@ def init_distributed(
     Explicit arguments win; otherwise the JAX_COORDINATOR_ADDRESS /
     JAX_NUM_PROCESSES / JAX_PROCESS_ID environment variables (what
     scripts/pod_run.sh exports — the mpirun -n analog) are used; with
-    neither, jax's own cluster auto-detection handles TPU pods
-    (GKE/GCE metadata) and Slurm/OpenMPI launchers."""
+    neither, jax's own cluster auto-detection handles Slurm/OpenMPI
+    launchers."""
     import os
 
     import jax

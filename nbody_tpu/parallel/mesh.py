@@ -1,9 +1,10 @@
 """Device-mesh construction for particle-sharded runs.
 
 The reference's distributed axis is MPI data decomposition over particles
-(ver5_all/GSimulation.cpp:93-115).  The TPU-native equivalent is a 1-D
-``jax.sharding.Mesh`` over the particle axis; collectives ride ICI within a
-slice and DCN across slices through the same primitives."""
+(ver5_all/GSimulation.cpp:93-115).  The equivalent here is a 1-D
+``jax.sharding.Mesh`` over the particle axis.  The mesh follows the
+algorithm: the cards of a GPU host are joined all to all, so no device
+order is preferred."""
 
 from __future__ import annotations
 

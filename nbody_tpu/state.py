@@ -1,15 +1,15 @@
 """Particle state: an SoA pytree of device arrays.
 
 The reference's ``ParticleSoA`` holds ten parallel heap arrays
-(ver3/Particle.hpp:43-59).  TPU-natively the state is a single frozen
+(ver3/Particle.hpp:43-59).  Here the state is a single frozen
 dataclass pytree of jnp arrays with coordinates stacked on a leading axis of
-3 so each coordinate row is a contiguous lane vector:
+3 so each coordinate row is a contiguous vector:
 
 * ``pos``  — (3, N) fp32
 * ``vel``  — (3, N) fp32
 * ``mass`` — (N,)  fp32
 
-Acceleration is deliberately NOT part of the state: on TPU it is a pure
+Acceleration is deliberately NOT part of the state: it is a pure
 function of positions recomputed inside the fused step (the reference
 instead persists and re-zeroes ``acc`` each step, ver0/GSimulation.cpp:163-165).
 

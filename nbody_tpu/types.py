@@ -1,12 +1,12 @@
-"""Dtype policy for the TPU N-body framework.
+"""Dtype policy for the N-body framework.
 
 The reference fixes ``real_type = float`` (fp32) globally (ver0/types.hpp:21).
-On TPU we keep fp32 state and offer three force-kernel precision modes:
+We keep fp32 state and offer three force-kernel precision modes:
 
 * ``f32``   — fp32 distances and accumulation (ver2+ "float consistency"
               semantics, ver2/GSimulation.cpp:114-143).  Default.
-* ``bf16``  — bf16 pairwise deltas with fp32 accumulation (TPU-native
-              mixed precision; BASELINE.md config 3).
+* ``bf16``  — bf16 pairwise deltas with fp32 accumulation (mixed
+              precision; BASELINE.md config 3).
 * ``ref64`` — the ver0 mixed fp32/fp64 semantics (double softening/G
               promotion, ver0/GSimulation.cpp:114-147), used by the
               bit-exact oracle for fidelity tests.

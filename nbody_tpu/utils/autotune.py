@@ -1,26 +1,15 @@
-"""Kernel tile autotuning, covering every Pallas kernel family.
+"""Tile autotuning for the tiled pair kernel (ops/pallas_kernel.py).
 
 The reference's only runtime tuner adjusts the OpenCL CPU/GPU work split by
 +0.01 per sample block (ver5_all/programming_models/opencl/Compute.cpp:
-317-321).  The TPU analog is tile-size selection, done as an on-device
-pre-run sweep with difference-method timing (two loop lengths, attributing
-the difference to the extra iterations) so fixed dispatch/fetch costs
-cancel.
+317-321).  The analog here is tile-size selection, done as an on-device
+pre-run sweep over (tile_i, tile_j) powers of two with difference-method
+timing (two loop lengths, attributing the difference to the extra
+iterations) so fixed dispatch costs cancel.
 
-Families:
-
-* ``forward``     — the streaming tiled kernel (ops/pallas_kernel.py),
-                    candidates are (tile_i, tile_j)
-* ``forward_sym`` — the pair-symmetric kernel (ops/pallas_sym.py),
-                    candidates are (block, block)
-* ``backward``    — the analytic-VJP kernel (ops/grad.force_vjp_pallas)
-* ``fused``       — the VMEM-resident sample-block kernel
-                    (ops/fused_block.py), timed over short blocks
-
-Results are cached in-process and on disk
-(~/.cache/nbody_tpu/autotune.json) keyed by (backend, device kind, family,
-padded N, dtype mode) — per-N entries, so each problem size gets its own
-tiles.
+Results are cached in-process and on disk (``autotune.json`` in the
+user's cache directory) keyed by (backend, device kind, padded N, dtype
+mode) — per-N entries, so each problem size gets its own tiles.
 """
 
 from __future__ import annotations
@@ -32,24 +21,11 @@ from typing import Iterable, Optional, Tuple
 
 import numpy as np
 
-DEFAULT_CANDIDATES: dict[str, tuple[Tuple[int, int], ...]] = {
-    "forward": (
-        (512, 2048), (512, 1024), (256, 2048), (1024, 1024), (512, 512),
-        (256, 1024),
-    ),
-    "forward_sym": ((1024, 1024), (512, 512), (256, 256), (2048, 2048)),
-    "backward": (
-        (512, 1024), (512, 512), (256, 1024), (256, 2048), (1024, 512),
-        (512, 2048),
-    ),
-    # Square (b, b) candidates select the rows-only pair-symmetric sweep
-    # (the default, measured 1.34x over the legacy columns kernel);
-    # rectangular ones time the legacy columns layout so the sweep can
-    # still prefer it where it wins.
-    "fused": ((1024, 1024), (512, 512), (256, 256), (256, 2048),
-              (128, 2048), (256, 1024), (512, 1024)),
-}
-FAMILIES = tuple(DEFAULT_CANDIDATES)
+# (tile_i, tile_j) candidates, best-first from the H100 sweep (PERF.md).
+# The kernel pads to whole tiles, so every candidate fits every N.
+DEFAULT_CANDIDATES: tuple[Tuple[int, int], ...] = (
+    (32, 32), (32, 64), (64, 32), (64, 64), (128, 32), (32, 128),
+)
 
 _memory_cache: dict = {}
 
@@ -77,22 +53,20 @@ def _save_disk_cache(cache: dict) -> None:
         pass  # caching is best-effort
 
 
-def _cache_key(n_padded: int, dist_dtype: str, family: str) -> str:
+def _cache_key(n_padded: int, dist_dtype: str) -> str:
     import jax
 
     dev = jax.devices()[0]
-    fam = "" if family == "forward" else f"{family}|"
-    return (
-        f"{jax.default_backend()}|{dev.device_kind}|{fam}{n_padded}|{dist_dtype}"
-    )
+    return f"{jax.default_backend()}|{dev.device_kind}|{n_padded}|{dist_dtype}"
 
 
 def _diff_time(run, loops: int) -> Optional[float]:
-    """Difference-timed seconds per iteration, or None on failure."""
+    """Difference-timed seconds per iteration, or None when the candidate
+    fails to compile or run."""
     try:
         t1 = run(loops)
         t2 = run(2 * loops)
-    except Exception:
+    except Exception:  # noqa: BLE001 — a rejected candidate is skipped
         return None
     return max(t2 - t1, 1e-9) / loops
 
@@ -109,86 +83,19 @@ def _time_forward(pos, mass, ti, tj, loops, dist_dtype, interpret):
         )
         return p + np.float32(1e-30) * acc
 
-    return _diff_time(_loop_runner(body, pos), loops)
-
-
-def _time_forward_sym(pos, mass, ti, tj, loops, dist_dtype, interpret):
-    from ..ops.pallas_sym import accelerations
-
-    def body(_, p):
-        acc = accelerations(p, mass, block=ti, dist_dtype=dist_dtype,
-                            interpret=interpret)
-        return p + np.float32(1e-30) * acc
-
-    return _diff_time(_loop_runner(body, pos), loops)
-
-
-def _time_backward(pos, mass, ti, tj, loops, dist_dtype, interpret):
-    from ..ops.grad import force_vjp_pallas
-
-    def body(_, p):
-        d_pos, _ = force_vjp_pallas(
-            p, mass, p, tile_i=ti, tile_j=tj, interpret=interpret
-        )
-        return p + np.float32(1e-30) * d_pos
-
-    return _diff_time(_loop_runner(body, pos), loops)
-
-
-def _time_fused(pos, mass, ti, tj, loops, dist_dtype, interpret):
-    import jax
-
-    from ..ops.fused_block import fused_block, fused_cap
-
-    n = pos.shape[1]
-    if n > fused_cap(ti, tj):
-        return None
-    vel = np.zeros_like(pos)
-
-    def run(k):
-        f = jax.jit(
-            lambda p, v: fused_block(
-                p, v, mass, 0.1, k, tile_i=ti, tile_j=tj,
-                interpret=interpret,
-            )
-        )
-        out_p, out_v = f(pos, vel)
-        float(out_p[0, 0])  # sync via fetch
-        t0 = time.perf_counter()
-        out_p, out_v = f(pos, vel)
-        float(out_p[0, 0])
-        return time.perf_counter() - t0
-
-    return _diff_time(run, max(loops, 2))
-
-
-def _loop_runner(body, pos):
-    import jax
-
     def run(k):
         f = jax.jit(lambda p: jax.lax.fori_loop(0, k, body, p))
-        out = f(pos)
-        float(out[0, 0])  # sync via fetch
+        f(pos).block_until_ready()
         t0 = time.perf_counter()
-        out = f(pos)
-        float(out[0, 0])
+        f(pos).block_until_ready()
         return time.perf_counter() - t0
 
-    return run
-
-
-_TIMERS = {
-    "forward": _time_forward,
-    "forward_sym": _time_forward_sym,
-    "backward": _time_backward,
-    "fused": _time_fused,
-}
+    return _diff_time(run, loops)
 
 
 def autotune_tiles(
     n_padded: int,
     dist_dtype: str = "float32",
-    family: str = "forward",
     candidates: Optional[Iterable[Tuple[int, int]]] = None,
     loops: int = 5,
     interpret: bool = False,
@@ -196,11 +103,13 @@ def autotune_tiles(
     verbose: bool = False,
 ) -> Tuple[int, int]:
     """Pick the fastest (tile_i, tile_j) for this device, problem size and
-    kernel family (for ``forward_sym`` the block size is returned in both
-    slots)."""
-    if family not in _TIMERS:
-        raise ValueError(f"unknown family {family!r}; options: {FAMILIES}")
-    key = _cache_key(n_padded, dist_dtype, family)
+    distance dtype."""
+    cands = list(candidates or DEFAULT_CANDIDATES)
+    for ti, tj in cands:
+        if ti < 1 or tj < 1 or ti & (ti - 1) or tj & (tj - 1):
+            raise ValueError(f"tile candidate {(ti, tj)} is not a pair "
+                             "of powers of two")
+    key = _cache_key(n_padded, dist_dtype)
     if key in _memory_cache:
         return tuple(_memory_cache[key])
     disk = _load_disk_cache() if use_disk_cache else {}
@@ -212,153 +121,20 @@ def autotune_tiles(
     pos = np.asarray(rng.random((3, n_padded)), np.float32)
     mass = np.asarray(rng.random(n_padded), np.float32)
 
-    def _largest_divisor_leq(n: int, cap: int) -> int:
-        for c in range(min(cap, n), 0, -1):
-            if n % c == 0:
-                return c
-        return 1
-
-    valid = [
-        (ti, tj)
-        for ti, tj in (candidates or DEFAULT_CANDIDATES[family])
-        if n_padded % ti == 0 and n_padded % tj == 0
-    ] or [(
-        _largest_divisor_leq(n_padded, 512),
-        _largest_divisor_leq(n_padded, 128),
-    )]
-
-    timer = _TIMERS[family]
     best, best_t = None, float("inf")
-    for ti, tj in valid:
-        t = timer(pos, mass, ti, tj, loops, dist_dtype, interpret)
+    for ti, tj in cands:
+        t = _time_forward(pos, mass, ti, tj, loops, dist_dtype, interpret)
         if verbose:
             rate = n_padded * n_padded / t / 1e9 if t else float("nan")
-            print(f"  autotune[{family}] ({ti},{tj}): "
+            print(f"  autotune ({ti},{tj}): "
                   + (f"{rate:.1f} Gpairs/s" if t else "failed"))
         if t is not None and t < best_t:
             best, best_t = (ti, tj), t
     if best is None:
-        raise RuntimeError(
-            f"autotune[{family}]: every candidate tile failed to compile"
-        )
+        raise RuntimeError("autotune: every candidate tile failed to compile")
 
     _memory_cache[key] = list(best)
     if use_disk_cache:
         disk[key] = list(best)
-        _save_disk_cache(disk)
-    return best
-
-
-# P3M short-range sweep layouts to race, best-first-guess order (the
-# names key ops/pm.SR_LAYOUTS).  "xla" last: it is the known-slow
-# HBM-streaming baseline everywhere the Pallas tier is eligible, but it
-# must stay in the race — past the VMEM gate (huge N) or under a Mosaic
-# rejection every "pallas*" candidate silently degrades to it, and the
-# tie then resolves to whichever timed first.
-SR_LAYOUT_CANDIDATES: tuple = (
-    "pallas", "pallas_paired", "pallas_sym", "pallas_paired_sym", "xla",
-)
-
-
-def autotune_sr_layout(
-    pos,
-    mass,
-    kernel_opts: Optional[dict] = None,
-    candidates: Optional[Iterable[str]] = None,
-    loops: int = 2,
-    use_disk_cache: bool = True,
-    verbose: bool = False,
-) -> str:
-    """Pick the fastest P3M short-range sweep layout for this device and
-    THIS state (occupancy is data-dependent, so timing runs on the real
-    positions with the caller's measured plan, not synthetic data).
-
-    The reference's tuner re-times its device split every sample block
-    (ver5_all/programming_models/opencl/Compute.cpp:317-321); the P3M
-    analog of that decision is which sweep layout serves the short-range
-    pass — XLA-streaming vs the Pallas table sweep and its symmetric /
-    paired-row variants (ops/pm.py SR_LAYOUTS).  Results cache like the
-    tile families, keyed by device, N, and the resolved mesh/plan
-    geometry (the plan is the distribution's fingerprint).
-
-    Returns the winning layout NAME and leaves the module layout state
-    untouched — apply the winner with ``pm.set_sr_layout(name)``."""
-    import jax
-
-    from ..ops import pm
-
-    opts = dict(kernel_opts or {})
-    opts.setdefault("cutoff_cells", pm.DEFAULT_CUTOFF_CELLS)
-    if not int(opts.get("cutoff_cells") or 0):
-        raise ValueError(
-            "autotune_sr_layout tunes the P3M short-range sweep; "
-            "cutoff_cells must be > 0 (plain pm has no short-range pass)"
-        )
-    names = list(candidates or SR_LAYOUT_CANDIDATES)
-    bad = [c for c in names if c not in pm.SR_LAYOUTS]
-    if bad or not names:
-        # A typo'd name silently shrinking the race (and persisting the
-        # wrong winner to the disk cache) is worse than an error.
-        raise ValueError(
-            f"invalid SR layout candidates {bad or candidates!r}; "
-            f"options: {tuple(pm.SR_LAYOUTS)}"
-        )
-    n = int(pos.shape[1])
-    plan_sig = "/".join(
-        str(int(opts.get(k) or 0))
-        for k in ("grid", "cutoff_cells", "capacity", "sr_slabs",
-                  "sr_entries", "sr_ghosts")
-    ) + f"/{opts.get('boundary', 'open')}"
-    key = _cache_key(n, plan_sig, "p3m_sr")
-    if key in _memory_cache:
-        return _memory_cache[key]
-    disk = _load_disk_cache() if use_disk_cache else {}
-    if key in disk and isinstance(disk[key], str):
-        _memory_cache[key] = disk[key]
-        return disk[key]
-
-    best, best_t = None, float("inf")
-    for name in names:
-        prev = pm.set_sr_layout(name)
-        try:
-            # Each candidate self-sizes its static plan: sr_entries is
-            # sized per-layout (suggest_sr_plan), so racing every
-            # layout under ONE caller plan would either starve the
-            # bigger worklists (silently dropped entries — wrong
-            # forces AND wrong timings) or tax the clipped ones with
-            # ~8x dead padding.  Caller-pinned fields win; unpinned
-            # ones are re-measured under the candidate layout.
-            cand = dict(opts)
-            plan = pm.suggest_sr_plan(
-                pos, mass,
-                int(opts.get("grid") or pm.DEFAULT_GRID),
-                int(opts.get("cutoff_cells") or 0),
-                capacity=int(opts.get("capacity") or 0),
-                boundary=opts.get("boundary", "open"),
-                box_size=float(opts.get("box_size") or 0.0))
-            for k, v in plan.items():
-                if not int(cand.get(k) or 0):
-                    cand[k] = v
-
-            def body(_, p, _kw=cand):
-                acc = pm.accelerations(p, mass, **_kw)
-                return p + np.float32(1e-30) * acc
-
-            t = _diff_time(_loop_runner(body, pos), loops)
-        finally:
-            pm.set_sr_layout(prev)
-        if verbose:
-            print(f"  autotune[p3m_sr] {name}: "
-                  + (f"{t * 1e3:.2f} ms/solve" if t else "failed"))
-        if t is not None and t < best_t:
-            best, best_t = name, t
-    if best is None:
-        raise RuntimeError(
-            "autotune[p3m_sr]: every layout candidate failed to compile"
-        )
-
-    _memory_cache[key] = best
-    if use_disk_cache:
-        disk[key] = best
         _save_disk_cache(disk)
     return best

@@ -3,7 +3,7 @@ flops/step = (11 + 18) * N^2 + 19 * N.
 
 All GFlop/s numbers this framework reports use this model so they are
 directly comparable with the reference's printed numbers, regardless of
-how many flops the TPU kernels actually execute."""
+how many flops the device kernels actually execute."""
 
 from __future__ import annotations
 

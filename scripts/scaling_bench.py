@@ -1,11 +1,10 @@
 #!/usr/bin/env python
 """Weak/strong-scaling benchmark across shard counts and comm modes.
 
-Ready for multi-chip rounds: on a v5p-8/v5p-32 it measures pair rate per
-shard for {allgather, ring} at each power-of-two shard count the device
-set supports.  On a single chip it degenerates to shards=1 (and on a CPU
-host it exercises the virtual mesh — numbers then validate plumbing, not
-hardware).
+On a multi-GPU host it measures pair rate per shard for {allgather,
+ring} at each power-of-two shard count the device set supports.  On one
+card it degenerates to shards=1 (and on a CPU host it exercises the
+virtual mesh — numbers then validate plumbing, not hardware).
 
 Usage: python scripts/scaling_bench.py [N] [--weak] [--steps K]
   strong scaling (default): global N fixed, shards grow

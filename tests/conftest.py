@@ -1,7 +1,7 @@
 """Test configuration: run everything on an 8-virtual-device CPU mesh.
 
-This is the TPU-idiomatic substitute for the multi-node hardware the
-reference never tests without (SURVEY.md §4): sharding/collective logic is
+This is the substitute for the multi-device hardware the reference never
+tests without (SURVEY.md §4): sharding/collective logic is
 validated on fake devices; numerics are validated against golden fixtures
 from the compiled C++ reference."""
 
@@ -19,6 +19,20 @@ import pytest  # noqa: E402
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running fidelity tests")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU; skipped elsewhere (chip_smoke.py "
+        "covers it)")
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless JAX's default device is a GPU.  Decided here, at run
+    time, never at import or collection time."""
+    import jax
+
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs an NVIDIA GPU (run python chip_smoke.py)")
 
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")

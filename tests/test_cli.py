@@ -61,29 +61,32 @@ def test_thread_dims_map_to_tiles():
     cfg = SimConfig(kernel="pallas", tile_i=128, tile_j=256)
     assert cfg.kernel_opts()["tile_i"] == 128
     assert cfg.kernel_opts()["tile_j"] == 256
-    # tiles reach every pallas-family kernel, incl. the MXU experiment
-    cfg = SimConfig(kernel="pallas_mxu", tile_i=128)
-    assert cfg.kernel_opts()["tile_i"] == 128
     # but not the naive kernel (no such options there)
     cfg = SimConfig(kernel="naive", tile_i=128)
     assert "tile_i" not in cfg.kernel_opts()
 
 
-def test_pallas_comm_modes_carry_interpret():
-    """--comm ring_sym / rdma run Pallas kernels regardless of the
-    resolved self-kernel, so --interpret (and tiles) must flow through
-    even when kernel=naive/auto-on-CPU (r2 review fix)."""
+def test_interpret_reaches_pallas_only():
+    """--interpret (and tiles) flow to the Pallas kernel, whether named
+    or chosen by auto, and never leak into naive."""
     from nbody_tpu.config import SimConfig
 
-    for comm in ("ring_sym", "rdma"):
-        cfg = SimConfig(kernel="naive", shards=4, comm=comm,
-                        interpret=True, tile_i=64)
-        opts = cfg.kernel_opts()
-        assert opts.get("interpret") is True, comm
-        assert opts.get("tile_i") == 64, comm
-    # single-device runs don't leak pallas opts into the naive kernel
-    cfg = SimConfig(kernel="naive", interpret=True)
-    assert "interpret" not in cfg.kernel_opts()
+    cfg = SimConfig(kernel="pallas", shards=4, comm="ring",
+                    interpret=True, tile_i=64)
+    assert cfg.kernel_opts() == {"interpret": True, "tile_i": 64}
+    cfg = SimConfig(kernel="naive", interpret=True, tile_i=64)
+    assert cfg.kernel_opts() == {}
+
+
+@pytest.mark.parametrize("argv", [
+    ["--kernel", "pallas_sym"], ["--kernel", "pallas_mxu"],
+    ["--comm", "rdma"], ["--comm", "ring_sym"], ["--fused"],
+    ["--pm-sr-layout", "xla"],
+])
+def test_removed_options_rejected(argv, capsys):
+    with pytest.raises(SystemExit) as exc:
+        build_parser().parse_args(["128", "10"] + argv)
+    assert exc.value.code == 2
 
 
 def test_shards_process_divisibility_guard(monkeypatch):
@@ -96,18 +99,6 @@ def test_shards_process_divisibility_guard(monkeypatch):
     monkeypatch.setenv("NBODY_NUM_PROCESSES", "3")
     with _pytest.raises(SystemExit, match="divisible"):
         main(["128", "1", "--shards", "8", "--platform", "cpu"])
-
-
-def test_mxu_rejects_bf16():
-    import numpy as np
-    import pytest as _pytest
-
-    from nbody_tpu.ops import pallas_mxu
-
-    pos = np.zeros((3, 128), np.float32)
-    mass = np.ones(128, np.float32)
-    with _pytest.raises(ValueError):
-        pallas_mxu.accelerations(pos, mass, dist_dtype="bfloat16")
 
 
 def test_device_selector_semantics():
@@ -127,37 +118,9 @@ def test_device_selector_semantics():
 
 def test_cpu_ratio_emits_note(capsys):
     """cpu_ratio is accepted for CLI parity (ver5_all/main.cpp:49) but a
-    TPU mesh has no CPU/GPU split — the CLI says so instead of silently
+    device mesh has no CPU/GPU split — the CLI says so instead of silently
     ignoring the flag."""
     rc, out = _run_cli(["128", "50", "gpu", "0.25", "--kernel", "naive"])
     assert rc == 0
     err = capsys.readouterr().err
     assert "cpu_ratio=0.25" in err and "homogeneous" in err
-
-
-def test_fused_with_shards_rejected():
-    from nbody_tpu.config import SimConfig
-
-    with pytest.raises(ValueError, match="fused"):
-        SimConfig(fused=True, shards=2)
-
-
-def test_pm_sr_layout_flag():
-    """--pm-sr-layout parses, reaches the config, an end-to-end
-    forced-layout p3m run works, and the layout is RESTORED afterwards
-    (it applies to its run; later runs in the process see the module
-    defaults)."""
-    from nbody_tpu.ops import pm
-
-    args = build_parser().parse_args(
-        ["--kernel", "p3m", "--pm-sr-layout", "pallas_paired"])
-    assert args.pm_sr_layout == "pallas_paired"
-    orig = pm.sr_layout_state()
-    try:
-        rc, out = _run_cli(["256", "10", "--kernel", "p3m",
-                            "--pm-grid", "16", "--platform", "cpu",
-                            "--pm-sr-layout", "xla"])
-        assert rc == 0
-        assert pm.sr_layout_state() == orig
-    finally:
-        pm.set_sr_layout(orig)

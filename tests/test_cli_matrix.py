@@ -44,15 +44,18 @@ MATRIX = [
      "--energy-check"],
     ["128", "50", "--kernel", "pallas", "--interpret",
      "--tile-i", "64", "--tile-j", "128"],
-    ["128", "50", "--fused", "--interpret", "--tile-i", "64",
-     "--tile-j", "128"],
+    ["128", "50", "--kernel", "pallas", "--interpret", "--integrator",
+     "leapfrog"],
+    ["128", "50", "--kernel", "pallas", "--interpret", "--precision",
+     "bf16"],
     ["64", "50", "--kernel", "pallas", "--interpret", "--tile-i", "16",
-     "--tile-j", "32", "--shards", "8", "--comm", "rdma"],
-    ["128", "50", "--kernel", "pallas_sym", "--interpret", "--tile-i", "64"],
-    ["128", "50", "--kernel", "pallas_sym", "--interpret", "--tile-i", "32",
-     "--shards", "4", "--comm", "ring"],  # sharded: between-form fallback
-    ["128", "50", "--kernel", "pallas_sym", "--interpret", "--tile-i", "16",
-     "--shards", "8", "--comm", "ring_sym"],  # pair-symmetric half-ring
+     "--tile-j", "32", "--shards", "8", "--comm", "allgather"],
+    ["128", "50", "--kernel", "pallas", "--interpret", "--tile-i", "32",
+     "--shards", "4", "--comm", "ring"],
+    ["128", "50", "--kernel", "pallas", "--interpret", "--shards", "8",
+     "--comm", "ring", "--integrator", "leapfrog"],
+    ["64", "50", "--kernel", "pallas", "--interpret", "--shards", "4",
+     "--comm", "allgather", "--precision", "bf16"],
 ]
 
 
@@ -71,8 +74,9 @@ def test_cli_combo_ref64():
     assert " 50 " in out
 
 
-def test_sharded_mxu_between():
-    # the MXU kernel's between-form through the sharded ring
+@pytest.mark.parametrize("comm", ["ring", "allgather"])
+def test_sharded_pallas_between(comm):
+    # the tiled kernel's between form through both sharded exchanges
     import numpy as np
 
     from nbody_tpu.init import make_state
@@ -83,10 +87,10 @@ def test_sharded_mxu_between():
     state = make_state(256, pad_multiple=8)
     sharded, mesh = shard_state(state, 8)
     opts = dict(tile_i=16, tile_j=32, interpret=True)
-    blk = make_sharded_block_fn("pallas_mxu", opts, 0.1, 3, mesh, comm="ring")
+    blk = make_sharded_block_fn("pallas", opts, 0.1, 3, mesh, comm=comm)
     out, ke = blk(sharded)
     ref, ke_ref = make_block_fn(make_accel_fn("naive"), 0.1, 3)(state)
-    assert float(ke) == pytest.approx(float(ke_ref), rel=1e-3)
+    assert float(ke) == pytest.approx(float(ke_ref), rel=1e-5)
     np.testing.assert_allclose(
-        np.asarray(out.pos), np.asarray(ref.pos), rtol=1e-4, atol=1e-7
+        np.asarray(out.pos), np.asarray(ref.pos), rtol=1e-5, atol=1e-7
     )

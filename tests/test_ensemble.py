@@ -55,7 +55,7 @@ def test_ensemble_sharded_over_members(kernel, opts):
     """The ensemble axis shards over the device mesh with NO
     collectives for EVERY kernel family and stays exact.  shard_map
     places whole members per device — GSPMD auto-partitioning cannot
-    split a vmapped FFT or Mosaic kernel without inserting all-gathers
+    split a vmapped FFT or Pallas kernel without inserting all-gathers
     (the original with_sharding_constraint formulation did exactly
     that; caught by this test's HLO scan once parametrized)."""
     if len(jax.devices()) < 8:

@@ -53,7 +53,7 @@ def test_render_collapse_example(tmp_path):
 
 
 def test_ladder_example(capsys):
-    _run_example("examples/ladder.py", ["512", "3"])
+    _run_example("examples/ladder.py", ["512", "3", "--interpret"])
     out = capsys.readouterr().out
     assert "naive jnp" in out
 

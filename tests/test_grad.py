@@ -39,10 +39,14 @@ def test_custom_vjp_matches_autodiff(system):
         assert err < 1e-4, err
 
 
-def test_pallas_kernel_differentiable(system):
+@pytest.mark.parametrize("tiles", [(32, 32), (64, 32), (32, 128)])
+def test_pallas_kernel_differentiable(system, tiles):
+    """The custom VJP over the tiled kernel (interpret mode) against
+    XLA autodiff of naive."""
     pos, mass = system
     accel_p = make_accel_fn(
-        "pallas", differentiable=True, tile_i=128, tile_j=128, interpret=True
+        "pallas", differentiable=True, tile_i=tiles[0], tile_j=tiles[1],
+        interpret=True
     )
     auto = jax.grad(_loss_fn(naive.accelerations), argnums=(0, 1))(pos, mass)
     got = jax.grad(_loss_fn(accel_p), argnums=(0, 1))(pos, mass)
@@ -73,20 +77,6 @@ def test_grad_through_trajectory(system):
     # the weak-force regime); check the structure is right.
     assert np.allclose(np.asarray(g[0]), 0.5, atol=0.01)
     assert np.allclose(np.asarray(g[1]), 0.0, atol=0.01)
-
-
-def test_pallas_backward_matches_jnp_backward(system):
-    from nbody_tpu.ops.grad import force_vjp_pallas
-
-    pos, mass = system
-    g = naive.accelerations(pos, mass) * jnp.float32(1e20)
-    want = force_vjp(pos, mass, g)
-    got = force_vjp_pallas(pos, mass, g, tile_i=128, tile_j=128,
-                           interpret=True)
-    for a, b in zip(got, want):
-        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-        err = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
-        assert err < 2e-5, err
 
 
 def test_vjp_zero_cotangent(system):

@@ -7,7 +7,7 @@ import pytest
 
 from nbody_tpu.init import reference_init_arrays
 from nbody_tpu.oracle import accelerations_ref64
-from nbody_tpu.ops import naive, pallas_kernel, pallas_mxu, pallas_sym, registry
+from nbody_tpu.ops import naive, pallas_kernel, registry
 
 
 def _rel_err(got, want):
@@ -90,64 +90,31 @@ def test_bf16_distance_mode(system):
     assert _l2_rel(got_p, acc64) < 5e-3
 
 
-def test_bf16_sym_matches_streaming_bf16(system):
-    """VERDICT-r2 item 3: the pair-symmetric kernel supports the
-    bf16-distance mode (same delta-rounding semantics as the streaming
-    kernel — _bf16_round rounds fp32 deltas through bf16, arithmetic
-    stays fp32), so BASELINE config 3 is no longer streaming-only."""
-    pos, mass, acc64 = system
-    want = np.asarray(
-        naive.accelerations(pos, mass, dist_dtype="bfloat16")
-    )
-    got = np.asarray(
-        pallas_sym.accelerations(
-            pos, mass, block=128, dist_dtype="bfloat16", interpret=True
-        )
-    )
-    # identical per-pair geometry, different accumulation order only
-    assert _l2_rel(got, want) < 2e-6
-    assert _l2_rel(got, acc64) < 5e-3
-    # momentum conservation survives the rounding: rounding commutes
-    # with negation, so F_ji = -F_ij stays exact pairwise.
-    mom = (np.asarray(got, np.float64) * np.asarray(mass, np.float64)).sum(1)
-    scale = np.abs(np.asarray(got, np.float64) * mass).sum(1).max()
-    assert np.abs(mom).max() < 1e-3 * scale
-
-
-def test_bf16_two_sided_matches_streaming_bf16(system):
-    """Two-sided (action/reaction) sweep in bf16-distance mode: both
-    outputs must match the streaming between-kernel's bf16 geometry."""
-    pos, mass, _ = system
-    nt = 256
-    pt, mt = pos[:, :nt], mass[:nt]
-    ps, ms = pos[:, nt:], mass[nt:]
-    acc_t, acc_s = pallas_sym.accelerations_two_sided(
-        pt, mt, ps, ms, block=128, dist_dtype="bfloat16", interpret=True
-    )
-    ref_t = naive.accelerations_between(pt, ps, ms, dist_dtype="bfloat16")
-    ref_s = naive.accelerations_between(ps, pt, mt, dist_dtype="bfloat16")
-    assert _l2_rel(acc_t, ref_t) < 2e-6
-    assert _l2_rel(acc_s, ref_s) < 2e-6
-
-
-def test_mxu_kernel_matches_naive(system):
-    pos, mass, acc64 = system
-    want = np.asarray(naive.accelerations(pos, mass))
-    got = np.asarray(
-        pallas_mxu.accelerations(
-            pos, mass, tile_i=128, tile_j=128, interpret=True
-        )
-    )
-    # the |r|^2 expansion loses a few bits on close pairs; field norm tight
-    assert _l2_rel(got, want) < 1e-4
-    assert _l2_rel(got, acc64) < 1e-4
-
-
 def test_registry_names():
-    assert set(registry.available()) >= {"naive", "pallas", "pallas_mxu", "auto"}
+    assert set(registry.available()) == {"naive", "pallas", "pm", "p3m",
+                                         "auto"}
     assert registry.resolve("auto") in ("naive", "pallas")
     with pytest.raises(KeyError):
         registry.get("bogus")
+
+
+@pytest.mark.parametrize("backend,want", [("gpu", "pallas"),
+                                          ("cpu", "naive")])
+def test_auto_resolves_by_backend(monkeypatch, backend, want):
+    """auto is the tiled kernel on a GPU (it won at N=16384 and N=1M on
+    the card, PERF.md) and naive elsewhere; named kernels pass through."""
+    monkeypatch.setattr(registry.jax, "default_backend", lambda: backend)
+    assert registry.resolve("auto") == want
+    assert registry.get("auto") is registry.get(want)
+    assert registry.resolve("naive") == "naive"
+
+
+@pytest.mark.parametrize("name", ["pallas_sym", "pallas_mxu", "fused"])
+def test_removed_kernels_rejected(name):
+    with pytest.raises(KeyError, match="unknown kernel"):
+        registry.get(name)
+    with pytest.raises(KeyError, match="unknown kernel"):
+        registry.get_between(name)
 
 
 def test_between_consistency(system):
@@ -189,135 +156,107 @@ def test_momentum_conservation():
     assert np.all(np.abs(net) < 1e-7 * scale)
 
 
-def test_chunked_dispatch_bit_identical():
-    """Watchdog-safe chunked dispatch (max_pairs_per_call) must reproduce
-    the single-call sweep bit-for-bit: same tiles, same accumulation
-    order, just split across sequential pallas_calls."""
-    import numpy as np
+def _acc64(pos_t, pos_s, mass_s):
+    """Float64 accelerations of targets due to sources (the softened
+    force law, diagonal unmasked)."""
+    from nbody_tpu.types import G_NEWTON, SOFTENING_SQUARED
 
-    from nbody_tpu.init import make_state
-    from nbody_tpu.ops import pallas_kernel
-
-    state = make_state(1024, pad_multiple=256)
-    pos, mass = state.pos, state.mass
-    one = pallas_kernel.accelerations_between(
-        pos, pos, mass, tile_i=128, tile_j=256, interpret=True,
-        max_pairs_per_call=0,
-    )
-    chunked = pallas_kernel.accelerations_between(
-        pos, pos, mass, tile_i=128, tile_j=256, interpret=True,
-        max_pairs_per_call=256 * 1024,  # forces 4 chunks of 256 targets
-    )
-    np.testing.assert_array_equal(np.asarray(one), np.asarray(chunked))
+    pt = np.asarray(pos_t, np.float64)
+    ps = np.asarray(pos_s, np.float64)
+    gm = G_NEWTON * np.asarray(mass_s, np.float64)
+    d = ps[:, None, :] - pt[:, :, None]
+    d2 = (d * d).sum(0) + SOFTENING_SQUARED
+    return (d * (gm / d2 ** 1.5)).sum(-1)
 
 
-def test_pallas_sym_matches_naive():
-    """Pair-symmetric kernel vs the naive oracle (interpret mode)."""
-    import numpy as np
-
-    from nbody_tpu.init import make_state
-    from nbody_tpu.ops import naive, pallas_sym
-
-    state = make_state(1500, pad_multiple=512)  # padded tail exercised
-    pos, mass = state.pos, state.mass
-    ref = np.asarray(naive.accelerations(pos, mass))
-    for b in (256, 512):
-        sym = np.asarray(
-            pallas_sym.accelerations(pos, mass, block=b, interpret=True)
-        )
-        err = np.linalg.norm(sym - ref) / np.linalg.norm(ref)
-        assert err < 5e-6, (b, err)
-
-
-def test_pallas_sym_mxu_reduce_matches():
-    """The MXU-offloaded reduction variant (documented negative result
-    for speed, docs/DESIGN.md) must stay numerically equivalent."""
-    import numpy as np
-
-    from nbody_tpu.init import make_state
-    from nbody_tpu.ops import pallas_sym
-
-    state = make_state(512, pad_multiple=256)
-    ref = np.asarray(
-        pallas_sym.accelerations(state.pos, state.mass, block=256,
-                                 interpret=True)
-    )
-    mxu = np.asarray(
-        pallas_sym.accelerations(state.pos, state.mass, block=256,
-                                 mxu_reduce=True, interpret=True)
-    )
-    err = np.linalg.norm(mxu - ref) / np.linalg.norm(ref)
-    assert err < 1e-6, err
+@pytest.mark.parametrize("dist_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tiles", [(32, 32), (64, 32), (32, 128)])
+@pytest.mark.parametrize("n", [1, 100, 384, 1000, 2048])
+def test_pallas_interpret_vs_fp64(n, tiles, dist_dtype):
+    """The tiled kernel in interpret mode against float64, at sizes that
+    are and are not multiples of the tiles (zero-mass tail padding)."""
+    pos, _, mass = reference_init_arrays(n)
+    got = np.asarray(pallas_kernel.accelerations(
+        pos, mass, tile_i=tiles[0], tile_j=tiles[1], dist_dtype=dist_dtype,
+        interpret=True))
+    assert got.shape == (3, n) and got.dtype == np.float32
+    if n == 1:
+        assert np.all(got == 0)  # the unmasked diagonal is exactly zero
+        return
+    want = _acc64(pos, pos, mass)
+    if dist_dtype == "float32":
+        assert _l2_rel(got, want) < 5e-6
+    else:
+        # Same delta rounding as naive's bf16 mode; only the summation
+        # order differs.
+        ref = np.asarray(naive.accelerations(pos, mass,
+                                             dist_dtype=dist_dtype))
+        assert _l2_rel(got, ref) < 2e-6
+        assert _l2_rel(got, want) < 5e-3
 
 
-def test_pallas_sym_auto_block_vmem_aware():
-    """The auto block pick must shrink at huge N so the (8,N) residency
-    plus the pair intermediates stay inside v5e VMEM — and the auto
-    registry dispatch must share the same rule (a forced DEFAULT_BLOCK at
-    N=1M exceeds the chip; VERDICT r2 regression guard)."""
-    from nbody_tpu.ops.pallas_sym import DEFAULT_BLOCK, auto_block
-
-    assert auto_block(65536) == DEFAULT_BLOCK
-    assert auto_block(786432) == DEFAULT_BLOCK  # 64*N == 48 MB boundary
-    assert auto_block(786432 + 512) == 512
-    assert auto_block(1048576) == 512
-
-
-def test_registry_auto_uses_vmem_aware_block(monkeypatch):
-    """kernel='auto' must defer to pallas_sym's auto block when the user
-    gave none — not force DEFAULT_BLOCK (which exceeds VMEM at N=1M)."""
-    import numpy as np
-
-    from nbody_tpu.ops import registry
-
-    seen = {}
-
-    def spy(pos, mass, block=0, **opts):
-        seen["block"] = block
-        return np.zeros_like(pos)
-
-    monkeypatch.setattr(registry.pallas_sym, "accelerations", spy)
-    monkeypatch.setattr(registry.jax, "default_backend", lambda: "tpu")
-    n = 1048576
-    registry._auto_self(np.zeros((3, n), np.float32), np.ones(n, np.float32))
-    assert seen["block"] == 512
-    # an explicit block is still honored
-    registry._auto_self(np.zeros((3, n), np.float32), np.ones(n, np.float32),
-                        block=256)
-    assert seen["block"] == 256
+@pytest.mark.parametrize("nt,ns", [(1, 100), (100, 1), (37, 300),
+                                   (300, 37), (64, 128), (129, 1000)])
+def test_pallas_between_form(nt, ns):
+    """accelerations_between with Nt != Ns (the sharded ring/allgather
+    and ensemble primitive) against naive's between form."""
+    pos, _, mass = reference_init_arrays(max(nt, ns) + 7)
+    pt = pos[:, 7:7 + nt]
+    ps, ms = pos[:, :ns], mass[:ns]
+    got = np.asarray(pallas_kernel.accelerations_between(
+        pt, ps, ms, tile_i=32, tile_j=64, interpret=True))
+    assert got.shape == (3, nt)
+    np.testing.assert_allclose(got, _acc64(pt, ps, ms), rtol=2e-5,
+                               atol=1e-6 * np.abs(_acc64(pt, ps, ms)).max())
 
 
-def test_pallas_sym_guards():
-    import numpy as np
-    import pytest as _pytest
-
-    from nbody_tpu.ops import pallas_sym
-
-    pos = np.zeros((3, 512), np.float32)
-    mass = np.ones(512, np.float32)
-    with _pytest.raises(ValueError, match="divisible"):
-        pallas_sym.accelerations(pos, mass, block=300)
+def test_pallas_rejects_non_power_of_two_tiles():
+    pos, _, mass = reference_init_arrays(64)
+    with pytest.raises(ValueError, match="power of two"):
+        pallas_kernel.accelerations(pos, mass, tile_i=48, interpret=True)
 
 
-def test_two_sided_block_matches_naive():
-    """accelerations_two_sided returns both the action on targets and
-    the reaction on sources from one sweep (the half-ring building
-    block)."""
-    import numpy as np
+def test_pallas_zero_mass_padding_force_neutral():
+    """Explicit zero-mass sources change nothing, exactly as the kernel's
+    own tail padding must not."""
+    pos, _, mass = reference_init_arrays(100)
+    pos_aug = np.concatenate([pos, pos[:, :28]], axis=1)
+    mass_aug = np.concatenate([mass, np.zeros(28, np.float32)])
+    a = np.asarray(pallas_kernel.accelerations_between(
+        pos, pos, mass, tile_i=32, tile_j=32, interpret=True))
+    b = np.asarray(pallas_kernel.accelerations_between(
+        pos, pos_aug, mass_aug, tile_i=32, tile_j=32, interpret=True))
+    np.testing.assert_array_equal(a, b)
 
-    from nbody_tpu.init import make_state
-    from nbody_tpu.ops import naive, pallas_sym
 
-    a = make_state(256, pad_multiple=64)
-    b = make_state(192, pad_multiple=64, distribution="plummer", seed=3)
-    acc_t, acc_s = pallas_sym.accelerations_two_sided(
-        a.pos, a.mass, b.pos, b.mass, block=64, interpret=True
-    )
-    ref_t = naive.accelerations_between(a.pos, b.pos, b.mass)
-    ref_s = naive.accelerations_between(b.pos, a.pos, a.mass)
-    np.testing.assert_allclose(
-        np.asarray(acc_t), np.asarray(ref_t), rtol=3e-5, atol=1e-8
-    )
-    np.testing.assert_allclose(
-        np.asarray(acc_s), np.asarray(ref_s), rtol=3e-5, atol=1e-8
-    )
+@pytest.mark.parametrize("n,want", [(2000, 2000), (16384, 4096),
+                                    (1048576, 64), (4194304, 16)])
+def test_naive_chunk_sized_by_bytes(n, want):
+    """naive's target chunk keeps one chunk's temporaries under the byte
+    budget: the largest divisor of N within it (at N=4M a fixed 1024
+    would need 50 GB of deltas)."""
+    c = naive.chunk_for(n, n)
+    assert c == want
+    assert n % c == 0
+    assert c * n * naive.TEMP_BYTES_PER_PAIR <= naive.CHUNK_BUDGET_BYTES
+
+
+def test_naive_contraction_pinned_to_highest():
+    """The source sum must not run in TF32 on a GPU: the einsum carries
+    Precision.HIGHEST into the lowered program."""
+    import jax
+
+    pos, _, mass = reference_init_arrays(64)
+    text = jax.jit(naive.accelerations).lower(pos, mass).as_text()
+    assert "HIGHEST" in text
+
+
+@pytest.mark.gpu
+def test_pallas_compiled_matches_naive(gpu):
+    """The kernel as Triton compiles it for the card (no interpreter),
+    against naive; chip_smoke.py checks the same at full size."""
+    pos, _, mass = reference_init_arrays(3000)
+    got = np.asarray(pallas_kernel.accelerations(pos, mass))
+    assert _l2_rel(got, _acc64(pos, pos, mass)) < 5e-6
+    want = np.asarray(naive.accelerations(pos, mass))
+    assert _l2_rel(got, want) < 2e-6

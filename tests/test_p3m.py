@@ -185,13 +185,13 @@ def test_sr_worklist_count_independent_of_slab_padding():
 
     st = make_state(12288, distribution="reference", seed=3)
     plan = pm.suggest_sr_plan(st.pos, st.mass, 64, 4)
-    # Plans are sized for the ACTIVE layout — pack the worklist the
+    # Plans are sized for the active worklist — pack the one the
     # production solver would realize for this plan.
-    sym, pr = pm._active_sr_layout(plan["sr_slabs"] + 1)
+    sym = pm.SR_SYMMETRIC
     base = pm.sr_pack_inputs(st.pos, st.mass, grid=64, cutoff_cells=4,
                              sr_slabs=plan["sr_slabs"],
                              sr_entries=plan["sr_entries"],
-                             symmetric=sym, paired=pr)
+                             symmetric=sym)
     # the realized production worklist fits the plan it was measured for
     assert int(base["n_e"]) <= base["e_max"], (int(base["n_e"]),
                                                base["e_max"])
@@ -205,36 +205,33 @@ def test_sr_worklist_count_independent_of_slab_padding():
     padded = pm.sr_pack_inputs(st.pos, st.mass, grid=64, cutoff_cells=4,
                                sr_slabs=2 * plan["sr_slabs"],
                                sr_entries=4 * plan["sr_entries"],
-                               symmetric=sym, paired=pr)
+                               symmetric=sym)
     assert int(padded["n_e"]) == int(base["n_e"])
 
 
 def test_suggest_sr_plan_per_layout_sizing():
-    """suggest_sr_plan sizes sr_entries for the requested/active layout:
-    the clipped layouts carry fewer entries than the full worklist, an
-    explicit layout name respects the pallas eligibility gates, and
-    every per-layout plan still reproduces the full-plan forces when
-    run under ITS OWN layout."""
+    """suggest_sr_plan sizes sr_entries for the worklist it is asked for
+    (default: the module's SR_SYMMETRIC): the symmetric worklist carries
+    fewer entries than the full one, and a symmetric plan reproduces the
+    full-plan forces when run with the symmetric sweep."""
     pos, _, mass = plummer(4096, seed=5)
-    full = pm.suggest_sr_plan(pos, mass, 64, 4, layout="full")
-    sym = pm.suggest_sr_plan(pos, mass, 64, 4, layout="pallas_sym")
+    full = pm.suggest_sr_plan(pos, mass, 64, 4, symmetric=False)
+    sym = pm.suggest_sr_plan(pos, mass, 64, 4, symmetric=True)
     assert sym["sr_entries"] <= full["sr_entries"]
-    # paired sizing requires the pallas sweep to be eligible; force it
-    # (interpret mode runs it on CPU).
-    prev = pm.set_sr_layout(("pallas", True, True))
+    assert pm.suggest_sr_plan(pos, mass, 64, 4) == (
+        sym if pm.SR_SYMMETRIC else full)
+    prev = pm.SR_SYMMETRIC
     try:
-        prsym = pm.suggest_sr_plan(pos, mass, 64, 4)
-        assert prsym["sr_entries"] <= sym["sr_entries"]
-        a_pr = np.asarray(pm.accelerations(pos, mass, grid=64,
-                                           cutoff_cells=4, **prsym))
+        pm.SR_SYMMETRIC = True
+        a_sym = np.asarray(pm.accelerations(pos, mass, grid=64,
+                                            cutoff_cells=4, **sym))
+        pm.SR_SYMMETRIC = False
+        a_full = np.asarray(pm.accelerations(pos, mass, grid=64,
+                                             cutoff_cells=4, **full))
     finally:
-        pm.set_sr_layout(prev)
-    a_full = np.asarray(pm.accelerations(pos, mass, grid=64,
-                                         cutoff_cells=4, **full))
+        pm.SR_SYMMETRIC = prev
     scale = np.abs(a_full).max()
-    np.testing.assert_allclose(a_pr, a_full, rtol=0, atol=3e-5 * scale)
-    with pytest.raises(ValueError):
-        pm.suggest_sr_plan(pos, mass, 64, 4, layout="nope")
+    np.testing.assert_allclose(a_sym, a_full, rtol=0, atol=3e-5 * scale)
 
 
 def test_sr_entry_overflow_guard():
@@ -266,18 +263,15 @@ def test_engine_replans_on_entry_overflow():
     sim = _DeviceRunner(cfg)
     sim.prepare()
     plan_full = pm.suggest_sr_plan(sim.state.pos, sim.state.mass, 64, 4,
-                                   layout="full")
+                                   symmetric=False)
     # Starve the plan mid-flight (as clustering drift would) and let
     # the per-block health check catch and regrow it.
     cfg.pm_sr_entries = 64
     sim._blocks.clear()
     sim.accel_fn = make_accel_fn(cfg.kernel, **cfg.kernel_opts())
     sim._check_sr_health()
-    try:
-        assert cfg.pm_sr_entries > 64
-        assert cfg.pm_sr_entries <= plan_full["sr_entries"]
-    finally:
-        sim.finish()
+    assert cfg.pm_sr_entries > 64
+    assert cfg.pm_sr_entries <= plan_full["sr_entries"]
 
 
 def test_p3m_overflow_momentum_symmetric():
@@ -295,7 +289,7 @@ def test_p3m_overflow_momentum_symmetric():
 
 
 def _packed_sweep_inputs(n=2048, ng=64, cutoff=4, seed=11,
-                         symmetric=False, paired=False, sr_slabs=0):
+                         symmetric=False, sr_slabs=0):
     """Short-range packing via the solver's own recipe (pm.sr_pack_inputs
     — the shared seam, so the sweeps are compared in exactly the
     configuration the production solver runs)."""
@@ -303,7 +297,7 @@ def _packed_sweep_inputs(n=2048, ng=64, cutoff=4, seed=11,
     cap = pm.suggest_capacity(pos, mass, ng, cutoff)
     pk = pm.sr_pack_inputs(pos, mass, grid=ng, cutoff_cells=cutoff,
                            capacity=cap, symmetric=symmetric,
-                           paired=paired, sr_slabs=sr_slabs)
+                           sr_slabs=sr_slabs)
     return (pk["ptab"], pk["mtab"], pk["wl_t"], pk["wl_s"], pk["n_e"],
             pk["e_max"], pk["rc2"])
 
@@ -314,113 +308,8 @@ def _occupied(mtab):
     reaction recipients they accumulate variant-specific garbage (the
     beyond-window => zero-taper guarantee only holds inside cells), and
     the solver never gathers them — so table comparisons must not
-    either (pm._sr_sweep_pallas docstring, EMPTY-SLOT CONTRACT)."""
+    either."""
     return np.asarray(mtab) > 0
-
-
-def test_sr_sweep_pallas_matches_xla():
-    """The Pallas short-range sweep (VMEM-resident row tables, SMEM
-    worklist chunks, flush-on-target-change accumulator) must agree with
-    the XLA-composed sweep to summation-order tolerance — same worklist,
-    same pair math.  Uses a small chunk so runs genuinely span chunk
-    boundaries."""
-    import numpy as np
-
-    ptab, mtab, wl_t, wl_s, n_e, e_max, rc2 = _packed_sweep_inputs()
-    occ = _occupied(mtab)
-    a_xla = np.asarray(pm._sr_sweep(ptab, mtab, wl_t, wl_s, n_e,
-                                    rc2))[:, occ]
-    a_pl = np.asarray(pm._sr_sweep_pallas(ptab, mtab, wl_t, wl_s,
-                                          (0, e_max), rc2, chunk=128,
-                                          interpret=True))[:, occ]
-    assert a_pl.shape == a_xla.shape
-    scale = np.abs(a_xla).max()
-    np.testing.assert_allclose(a_pl, a_xla, rtol=0, atol=2e-5 * scale)
-    # The flushless fallback (per-entry reduce, no cond-carried state)
-    # must agree too — it is the first-Mosaic-contact insurance path.
-    a_nf = np.asarray(pm._sr_sweep_pallas(ptab, mtab, wl_t, wl_s,
-                                          (0, e_max), rc2, chunk=128,
-                                          interpret=True,
-                                          flush_runs=False))[:, occ]
-    np.testing.assert_allclose(a_nf, a_xla, rtol=0, atol=2e-5 * scale)
-
-
-def test_sr_sweep_pallas_bounds_split():
-    """The sharded path sweeps disjoint entry ranges per shard and psums
-    the slot tables: the per-range partial sweeps must sum to the full
-    sweep (each entry lands in exactly one range; boundary runs RMW the
-    same row from two ranges, so tolerance is summation-order)."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    (ptab, mtab, wl_t, wl_s, n_e, e_max,
-     rc2) = _packed_sweep_inputs(n=1024, ng=32, seed=12)
-    e_lim = int(n_e)
-    full = np.asarray(pm._sr_sweep_pallas(ptab, mtab, wl_t, wl_s,
-                                          (0, e_lim), rc2, chunk=128,
-                                          interpret=True))
-    k = 4
-    per = -((-e_lim) // k)
-    parts = sum(
-        np.asarray(pm._sr_sweep_pallas(
-            ptab, mtab, wl_t, wl_s,
-            jnp.asarray([i * per, min((i + 1) * per, e_lim)], jnp.int32),
-            rc2, chunk=128, interpret=True))
-        for i in range(k))
-    scale = np.abs(full).max()
-    np.testing.assert_allclose(parts, full, rtol=1e-6, atol=2e-6 * scale)
-
-
-def test_sr_sweep_impl_knob_end_to_end():
-    """pm.SR_SWEEP_IMPL='pallas' routes the FULL p3m solve through the
-    Pallas sweep (interpret mode off-TPU) and must agree with the XLA
-    sweep to summation-order tolerance."""
-    import numpy as np
-
-    pos, _, mass = plummer(1024, seed=13)
-    kw = dict(grid=32, cutoff_cells=4,
-              capacity=pm.suggest_capacity(pos, mass, 32, 4))
-    a_x = np.asarray(pm.accelerations(pos, mass, **kw))
-    assert pm.SR_SWEEP_IMPL == "auto"
-    pm.SR_SWEEP_IMPL = "pallas"
-    try:
-        a_p = np.asarray(pm.accelerations(pos, mass, **kw))
-    finally:
-        pm.SR_SWEEP_IMPL = "auto"
-    scale = np.abs(a_x).max()
-    np.testing.assert_allclose(a_p, a_x, rtol=0, atol=2e-5 * scale)
-
-
-def test_sr_sweep_pallas_sharded_matches_single():
-    """Forced-pallas sharded p3m: the per-shard traced entry bounds
-    (k_id*per) + slot-table psum must reproduce the single-device
-    solve."""
-    import numpy as np
-
-    from nbody_tpu.init import make_state
-    from nbody_tpu.models.gravity import make_accel_fn
-    from nbody_tpu.models.integrators import make_block_fn
-    from nbody_tpu.parallel.decompose import (
-        make_sharded_block_fn,
-        shard_state,
-    )
-
-    opts = dict(grid=32, capacity=64)
-    state = make_state(512, pad_multiple=8, distribution="plummer")
-    pm.SR_SWEEP_IMPL = "pallas"
-    try:
-        ref_state, ref_ke = make_block_fn(
-            make_accel_fn("p3m", **opts), 0.01, 2)(state)
-        sharded, mesh = shard_state(state, 4)
-        blk = make_sharded_block_fn("p3m", opts, 0.01, 2, mesh,
-                                    comm="allgather")
-        out, ke = blk(sharded)
-    finally:
-        pm.SR_SWEEP_IMPL = "auto"
-    np.testing.assert_allclose(np.asarray(out.pos),
-                               np.asarray(ref_state.pos),
-                               rtol=2e-5, atol=1e-8)
-    assert abs(float(ke) - float(ref_ke)) <= 1e-5 * abs(float(ref_ke))
 
 
 def test_p3m_differentiable_grad():
@@ -482,12 +371,11 @@ def test_p3m_differentiable_grad():
     assert np.all(np.isfinite(g)) and np.abs(g).max() > 0
 
 
-def test_sr_pallas_differentiable_ad_wrapper():
-    """differentiable=True with the Pallas sweep engaged: the primal is
-    the Pallas kernel itself (bit-identical to the non-differentiable
-    path — custom_vjp changes only the backward rule), and jax.grad
-    matches the XLA static-bound sweep's gradient.  Also checked under
-    SR_SYMMETRIC (the cotangent rule forwards the symmetric flag)."""
+def test_sr_differentiable_primal_identity():
+    """differentiable=True changes only how the short-range loop is
+    bounded (static, so AD can cross it): the primal is bit-identical to
+    the production traced-bound sweep, for the full and the symmetric
+    worklist, and jax.grad flows under both."""
     import jax
     import jax.numpy as jnp
 
@@ -501,34 +389,28 @@ def test_sr_pallas_differentiable_ad_wrapper():
         return jnp.mean(pm.accelerations(p, mass, differentiable=True,
                                          **kw) ** 2)
 
-    # Pin the plain (unpaired) layout: the differentiable dispatch masks
-    # paired rows off (slab-granular backward), so under the
-    # pallas_paired_sym DEFAULT the non-differentiable primal runs a
-    # different summation order — bit-identity is a same-layout claim.
-    prev = pm.set_sr_layout(("xla", False, False))
+    prev = pm.SR_SYMMETRIC
+    grads = {}
     try:
-        g_xla = np.asarray(jax.jit(jax.grad(loss))(pos))
-        pm.set_sr_layout(("pallas", False, False))
-        a_nd = np.asarray(pm.accelerations(pos, mass, **kw))
-        a_d = np.asarray(pm.accelerations(pos, mass, differentiable=True,
-                                          **kw))
-        np.testing.assert_array_equal(a_d, a_nd)
-        g_pl = np.asarray(jax.jit(jax.grad(loss))(pos))
-        pm.SR_SYMMETRIC = True
-        g_sym = np.asarray(jax.jit(jax.grad(loss))(pos))
+        for sym in (False, True):
+            pm.SR_SYMMETRIC = sym
+            a_nd = np.asarray(pm.accelerations(pos, mass, **kw))
+            a_d = np.asarray(pm.accelerations(pos, mass,
+                                              differentiable=True, **kw))
+            np.testing.assert_array_equal(a_d, a_nd)
+            grads[sym] = np.asarray(jax.jit(jax.grad(loss))(pos))
     finally:
-        pm.set_sr_layout(prev)
-    scale = np.abs(g_xla).max()
-    assert np.isfinite(g_pl).all() and np.abs(g_pl).max() > 0
-    np.testing.assert_allclose(g_pl, g_xla, rtol=0, atol=1e-5 * scale)
-    np.testing.assert_allclose(g_sym, g_xla, rtol=0, atol=2e-5 * scale)
+        pm.SR_SYMMETRIC = prev
+    scale = np.abs(grads[False]).max()
+    assert np.isfinite(grads[True]).all() and scale > 0
+    np.testing.assert_allclose(grads[True], grads[False], rtol=0,
+                               atol=2e-5 * scale)
 
 
 def test_p3m_forward_mode_via_xla_impl():
-    """Forward-mode AD (jax.jvp) crosses the P3M short-range pass when
-    pm.SR_SWEEP_IMPL='xla' forces the static-bound sweep (custom_vjp on
-    the Pallas path forecloses jvp — the documented escape hatch), and
-    the jvp agrees with the vjp-transposed gradient to fp32 noise."""
+    """Forward-mode AD (jax.jvp) crosses the P3M short-range pass (the
+    static-bound sweep), and the jvp agrees with the vjp-transposed
+    gradient to fp32 noise."""
     import jax
     import jax.numpy as jnp
 
@@ -544,13 +426,9 @@ def test_p3m_forward_mode_via_xla_impl():
 
     tan = jnp.asarray(np.random.default_rng(5).normal(
         size=pos.shape), jnp.float32)
-    pm.SR_SWEEP_IMPL = "xla"
-    try:
-        _, jvp_val = jax.jit(lambda p, t: jax.jvp(loss, (p,), (t,)))(
-            pos, tan)
-        g = jax.jit(jax.grad(loss))(pos)
-    finally:
-        pm.SR_SWEEP_IMPL = "auto"
+    _, jvp_val = jax.jit(lambda p, t: jax.jvp(loss, (p,), (t,)))(
+        pos, tan)
+    g = jax.jit(jax.grad(loss))(pos)
     jvp_val = float(jvp_val)
     dot = float(jnp.vdot(g, tan))
     assert np.isfinite(jvp_val) and abs(jvp_val) > 0
@@ -560,8 +438,7 @@ def test_p3m_forward_mode_via_xla_impl():
 def test_sr_sweep_symmetric_matches_full():
     """The pair-symmetric worklist (s >= t) + per-entry reaction must
     reproduce the full both-directions sweep: same physics, half the
-    entries.  Checked for the XLA sweep, the Pallas sweep (interpret,
-    chunk-boundary-spanning runs), and entry counts."""
+    entries, also with chunk-boundary-spanning runs."""
     import numpy as np
 
     full = _packed_sweep_inputs(seed=16)
@@ -576,11 +453,9 @@ def test_sr_sweep_symmetric_matches_full():
                                     symmetric=True))[:, occ]
     scale = np.abs(a_full).max()
     np.testing.assert_allclose(a_sym, a_full, rtol=0, atol=2e-5 * scale)
-    a_sym_pl = np.asarray(pm._sr_sweep_pallas(
-        ptab, mtab, wt_s, ws_s, (0, e_max), rc2, chunk=128,
-        interpret=True, symmetric=True))[:, occ]
-    np.testing.assert_allclose(a_sym_pl, a_full, rtol=0,
-                               atol=2e-5 * scale)
+    a_sym_c = np.asarray(pm._sr_sweep(ptab, mtab, wt_s, ws_s, ne_s, rc2,
+                                      chunk=96, symmetric=True))[:, occ]
+    np.testing.assert_allclose(a_sym_c, a_full, rtol=0, atol=2e-5 * scale)
 
 
 def test_sr_symmetric_knob_end_to_end():
@@ -591,190 +466,24 @@ def test_sr_symmetric_knob_end_to_end():
 
     pos, _, mass = plummer(2048, seed=17)
     kw = dict(grid=64, cutoff_cells=4)
-    prev = pm.set_sr_layout(("auto", False, False))
+    prev = pm.SR_SYMMETRIC
     try:
+        pm.SR_SYMMETRIC = False
         plan = pm.suggest_sr_plan(pos, mass, 64, 4)
         a_ref = np.asarray(pm.accelerations(pos, mass, **kw, **plan))
         pm.SR_SYMMETRIC = True
-        # Plans are sized for the ACTIVE layout (the symmetric worklist
-        # keeps ~half the entries); a later bigger-layout trace is
+        # Plans are sized for the active worklist (the symmetric one
+        # keeps ~half the entries); a later bigger-worklist trace is
         # guarded at runtime by pm.sr_entry_overflow.
         plan_s = pm.suggest_sr_plan(pos, mass, 64, 4)
         assert plan_s["sr_entries"] <= plan["sr_entries"]
         a_sym = np.asarray(pm.accelerations(pos, mass, **kw, **plan_s))
     finally:
-        pm.set_sr_layout(prev)
+        pm.SR_SYMMETRIC = prev
     scale = np.abs(a_ref).max()
     np.testing.assert_allclose(a_sym, a_ref, rtol=0, atol=3e-5 * scale)
     flux = np.abs((mass[None, :] * a_sym).sum(axis=1))
     assert np.all(flux < 1e-4 * np.abs(mass[None, :] * a_sym).sum())
-
-
-def test_sr_ranges_paired_covers_and_dedups():
-    """paired=True worklist structure: (a) no (target, source-row) pair
-    is emitted twice (a duplicate would double-count that row's
-    forces); (b) every slab-level entry (t, s) is covered by a paired
-    entry (t, s//2) — coverage is what makes the value-level agreement
-    below non-vacuous; (c) never more entries than the slab worklist."""
-    full = _packed_sweep_inputs(seed=18)
-    prd = _packed_sweep_inputs(seed=18, paired=True)
-    wl_t, wl_s, n_e = full[2], full[3], int(full[4])
-    pt, ps, ne_p = prd[2], prd[3], int(prd[4])
-    assert 0 < ne_p <= n_e
-    ent = set(zip(np.asarray(pt[:ne_p]).tolist(),
-                  np.asarray(ps[:ne_p]).tolist()))
-    assert len(ent) == ne_p  # no duplicates
-    for t, s in zip(np.asarray(wl_t[:n_e]).tolist(),
-                    np.asarray(wl_s[:n_e]).tolist()):
-        assert (t, s // 2) in ent
-
-
-def test_sr_sweep_pallas_paired_matches_xla():
-    """The paired-row Pallas sweep (two slabs per 128-lane row,
-    row-granular worklist) must agree with the XLA slab sweep: the
-    row coarsening only adds beyond-R_c pairs, whose taper weight is
-    exactly zero.  Covers the flush-runs and flushless bodies, an odd
-    slab count (even-pairing pad slab — the default pow2-sized plans
-    always produce one), and an even slab count (no pad)."""
-    full = _packed_sweep_inputs(seed=19)
-    prd = _packed_sweep_inputs(seed=19, paired=True)
-    ptab, mtab, rc2 = full[0], full[1], full[6]
-    occ = _occupied(mtab)
-    assert (ptab.shape[1] // pm.SLAB) % 2 == 0  # even: no pad slab
-    a_xla = np.asarray(pm._sr_sweep(ptab, mtab, full[2], full[3],
-                                    full[4], rc2))[:, occ]
-    a_pr = np.asarray(pm._sr_sweep_pallas(ptab, mtab, prd[2], prd[3],
-                                          (0, prd[5]), rc2, chunk=128,
-                                          interpret=True,
-                                          paired=True))[:, occ]
-    scale = np.abs(a_xla).max()
-    np.testing.assert_allclose(a_pr, a_xla, rtol=0, atol=2e-5 * scale)
-    a_nf = np.asarray(pm._sr_sweep_pallas(ptab, mtab, prd[2], prd[3],
-                                          (0, prd[5]), rc2, chunk=128,
-                                          interpret=True, paired=True,
-                                          flush_runs=False))[:, occ]
-    np.testing.assert_allclose(a_nf, a_xla, rtol=0, atol=2e-5 * scale)
-    # Odd slab count (sr_slabs=34 + sentinel = 35): the even-pairing
-    # pad slab is in play.
-    fo = _packed_sweep_inputs(seed=19, sr_slabs=34)
-    po = _packed_sweep_inputs(seed=19, sr_slabs=34, paired=True)
-    occ2 = _occupied(fo[1])
-    assert (fo[0].shape[1] // pm.SLAB) % 2 == 1
-    a_xla2 = np.asarray(pm._sr_sweep(fo[0], fo[1], fo[2], fo[3], fo[4],
-                                     fo[6]))[:, occ2]
-    a_pr2 = np.asarray(pm._sr_sweep_pallas(fo[0], fo[1], po[2], po[3],
-                                           (0, po[5]), fo[6], chunk=128,
-                                           interpret=True,
-                                           paired=True))[:, occ2]
-    scale2 = np.abs(a_xla2).max()
-    np.testing.assert_allclose(a_pr2, a_xla2, rtol=0, atol=2e-5 * scale2)
-
-
-def test_sr_sweep_pallas_paired_bounds_split():
-    """Sharded-path contract for the paired sweep: disjoint entry
-    ranges must sum to the full sweep (each row entry lands in exactly
-    one range)."""
-    import jax.numpy as jnp
-
-    prd = _packed_sweep_inputs(n=1024, ng=32, seed=12, paired=True)
-    ptab, mtab, wl_t, wl_s, n_e, e_max, rc2 = prd
-    e_lim = int(n_e)
-    full = np.asarray(pm._sr_sweep_pallas(ptab, mtab, wl_t, wl_s,
-                                          (0, e_lim), rc2, chunk=128,
-                                          interpret=True, paired=True))
-    k = 4
-    per = -((-e_lim) // k)
-    parts = sum(
-        np.asarray(pm._sr_sweep_pallas(
-            ptab, mtab, wl_t, wl_s,
-            jnp.asarray([i * per, min((i + 1) * per, e_lim)], jnp.int32),
-            rc2, chunk=128, interpret=True, paired=True))
-        for i in range(k))
-    scale = np.abs(full).max()
-    np.testing.assert_allclose(parts, full, rtol=1e-6, atol=2e-6 * scale)
-
-
-def test_sr_paired_knob_end_to_end():
-    """pm.SR_PAIRED_ROWS=True routes the FULL p3m solve through the
-    paired sweep (forced pallas, interpret off-TPU) and must agree with
-    the default; combined with SR_SYMMETRIC both engage (paired
-    symmetric worklist + per-lane masks) and must still agree."""
-    pos, _, mass = plummer(2048, seed=20)
-    kw = dict(grid=64, cutoff_cells=4)
-    prev = pm.set_sr_layout(("auto", False, False))
-    try:
-        plan = pm.suggest_sr_plan(pos, mass, 64, 4)
-        a_ref = np.asarray(pm.accelerations(pos, mass, **kw, **plan))
-        pm.SR_PAIRED_ROWS = True
-        pm.SR_SWEEP_IMPL = "pallas"
-        a_pr = np.asarray(pm.accelerations(pos, mass, **kw, **plan))
-        pm.SR_SYMMETRIC = True
-        a_both = np.asarray(pm.accelerations(pos, mass, **kw, **plan))
-    finally:
-        pm.set_sr_layout(prev)
-    scale = np.abs(a_ref).max()
-    np.testing.assert_allclose(a_pr, a_ref, rtol=0, atol=2e-5 * scale)
-    np.testing.assert_allclose(a_both, a_ref, rtol=0, atol=3e-5 * scale)
-
-
-def test_sr_paired_sharded_matches_single():
-    """Sharded p3m with the paired sweep: per-shard entry ranges over
-    the ROW worklist + slot-table psum must reproduce the single-device
-    solve."""
-    from nbody_tpu.init import make_state
-    from nbody_tpu.models.gravity import make_accel_fn
-    from nbody_tpu.models.integrators import make_block_fn
-    from nbody_tpu.parallel.decompose import (
-        make_sharded_block_fn,
-        shard_state,
-    )
-
-    opts = dict(grid=32, capacity=64)
-    state = make_state(512, pad_multiple=8, distribution="plummer")
-    prev = pm.set_sr_layout(("pallas", pm.SR_SYMMETRIC, True))
-    try:
-        ref_state, ref_ke = make_block_fn(
-            make_accel_fn("p3m", **opts), 0.01, 2)(state)
-        sharded, mesh = shard_state(state, 4)
-        blk = make_sharded_block_fn("p3m", opts, 0.01, 2, mesh,
-                                    comm="allgather")
-        out, ke = blk(sharded)
-    finally:
-        pm.set_sr_layout(prev)
-    np.testing.assert_allclose(np.asarray(out.pos),
-                               np.asarray(ref_state.pos),
-                               rtol=2e-5, atol=1e-8)
-    assert abs(float(ke) - float(ref_ke)) <= 1e-5 * abs(float(ref_ke))
-
-
-def test_sr_sweep_paired_symmetric_matches_full():
-    """paired + symmetric compose: the s>=t-clipped worklist coarsened
-    to rows, with per-lane slab masks replacing the per-slab
-    diagonal/clip logic (forward keeps slab >= t, reaction keeps
-    slab > t).  Must reproduce the full both-directions sweep; entries
-    must undercut BOTH single-knob variants."""
-    full = _packed_sweep_inputs(seed=21)
-    sym = _packed_sweep_inputs(seed=21, symmetric=True)
-    prd = _packed_sweep_inputs(seed=21, paired=True)
-    both = _packed_sweep_inputs(seed=21, symmetric=True, paired=True)
-    ptab, mtab, rc2 = full[0], full[1], full[6]
-    occ = _occupied(mtab)
-    assert int(both[4]) <= int(sym[4])
-    assert int(both[4]) <= int(prd[4])
-    a_full = np.asarray(pm._sr_sweep(ptab, mtab, full[2], full[3],
-                                     full[4], rc2))[:, occ]
-    a_ps = np.asarray(pm._sr_sweep_pallas(ptab, mtab, both[2], both[3],
-                                          (0, both[5]), rc2, chunk=128,
-                                          interpret=True, paired=True,
-                                          symmetric=True))[:, occ]
-    scale = np.abs(a_full).max()
-    np.testing.assert_allclose(a_ps, a_full, rtol=0, atol=3e-5 * scale)
-    a_nf = np.asarray(pm._sr_sweep_pallas(ptab, mtab, both[2], both[3],
-                                          (0, both[5]), rc2, chunk=128,
-                                          interpret=True, paired=True,
-                                          symmetric=True,
-                                          flush_runs=False))[:, occ]
-    np.testing.assert_allclose(a_nf, a_full, rtol=0, atol=3e-5 * scale)
 
 
 @pytest.mark.parametrize("dist,n,ng,seed", [
@@ -784,10 +493,9 @@ def test_sr_sweep_paired_symmetric_matches_full():
     ("uniform", 2048, 32, 6),       # near-empty cell list tails
 ])
 def test_sr_sweep_variants_fuzz(dist, n, ng, seed):
-    """Every sweep variant (pallas plain/sym/paired/pair-sym, flush and
-    flushless) against the XLA slab sweep over a spread of
-    distributions, sizes, and grids — occupied slots only (EMPTY-SLOT
-    CONTRACT)."""
+    """The symmetric worklist and sweep against the full one, over a
+    spread of distributions, sizes, grids and chunk widths — occupied
+    slots only (empty slots are never gathered)."""
     rng = np.random.default_rng(seed)
     if dist == "plummer":
         pos, _, mass = plummer(n, seed=seed)
@@ -808,56 +516,14 @@ def test_sr_sweep_variants_fuzz(dist, n, ng, seed):
         full["ptab"], full["mtab"], full["wl_t"], full["wl_s"],
         full["n_e"], full["rc2"]))[:, occ]
     scale = max(np.abs(a_ref).max(), 1e-30)
-    for sym, prd in ((False, False), (True, False), (False, True),
-                     (True, True)):
-        pk = pack(symmetric=sym, paired=prd)
-        for fr in (True, False):
-            a = np.asarray(pm._sr_sweep_pallas(
-                full["ptab"], full["mtab"], pk["wl_t"], pk["wl_s"],
-                (0, pk["e_max"]), pk["rc2"], chunk=128, interpret=True,
-                symmetric=sym, paired=prd, flush_runs=fr))[:, occ]
-            np.testing.assert_allclose(
-                a, a_ref, rtol=0, atol=4e-5 * scale,
-                err_msg=f"sym={sym} paired={prd} flush={fr}")
-
-
-def test_sr_paired_vmem_gate(monkeypatch):
-    """Paired tables cost half the VMEM: the auto-dispatch gate must
-    admit ~2x the slabs when paired."""
-    import jax
-
-    from nbody_tpu.utils import device_caps
-
-    monkeypatch.setattr(pm, "SR_SWEEP_IMPL", "auto")
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    limit = device_caps.caps().vmem_limit_bytes
-    fits_plain = int(0.7 * limit) // (7 * 128 * 4)
-    assert pm._use_pallas_sweep(fits_plain + 1) is False
-    assert pm._use_pallas_sweep(fits_plain + 1, paired=True) is True
-    fits_pr = int(0.7 * limit) // (7 * pm.SLAB * 4)
-    assert pm._use_pallas_sweep(fits_pr + 1, paired=True) is False
-
-
-def test_sr_sweep_dispatch_vmem_gate(monkeypatch):
-    """auto-dispatch: Pallas on TPU only while the seven lane-padded
-    (n_slabs, 128) tables fit the VMEM budget; forced modes are
-    absolute."""
-    import jax
-
-    from nbody_tpu.utils import device_caps
-
-    assert pm._use_pallas_sweep(100) is False  # cpu backend
-    monkeypatch.setattr(pm, "SR_SWEEP_IMPL", "pallas")
-    assert pm._use_pallas_sweep(10**9) is True  # forced wins
-    monkeypatch.setattr(pm, "SR_SWEEP_IMPL", "xla")
-    assert pm._use_pallas_sweep(1) is False
-    monkeypatch.setattr(pm, "SR_SWEEP_IMPL", "auto")
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    limit = device_caps.caps().vmem_limit_bytes
-    fits = int(0.7 * limit) // (7 * 128 * 4)
-    assert pm._use_pallas_sweep(fits - 1) is True
-    assert pm._use_pallas_sweep(fits + 1) is False
-    assert pm._use_pallas_sweep() is True  # unknown size: optimistic
+    sym = pack(symmetric=True)
+    assert int(sym["n_e"]) <= int(full["n_e"])
+    for chunk in (128, 512):
+        a = np.asarray(pm._sr_sweep(
+            full["ptab"], full["mtab"], sym["wl_t"], sym["wl_s"],
+            sym["n_e"], sym["rc2"], chunk=chunk, symmetric=True))[:, occ]
+        np.testing.assert_allclose(a, a_ref, rtol=0, atol=4e-5 * scale,
+                                   err_msg=f"chunk={chunk}")
 
 
 def test_make_accel_fn_mesh_tiers_native_ad():
@@ -910,166 +576,6 @@ def test_p3m_engine_run():
     assert cfg.pm_capacity >= 64  # the engine sized the cell list
     assert len(result.samples) == 2
     assert all(np.isfinite(ke) for _, ke in result.kenergy_trace)
-
-
-def _probe_env(monkeypatch, tmp_path, outcomes):
-    """Wire _use_pallas_sweep's Mosaic probe ladder for testing: pretend
-    a real TPU is attached, stub the probe compile with per-construct
-    outcomes {(sym, flush, paired): exception | None}, and isolate both
-    the in-process memo and the disk cache."""
-    calls = []
-
-    def fake_probe(symmetric, flush_runs, paired):
-        calls.append((symmetric, flush_runs, paired))
-        exc = outcomes.get((symmetric, flush_runs, paired))
-        if exc is not None:
-            raise exc
-
-    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
-    monkeypatch.setattr(pm, "SR_SWEEP_IMPL", "auto")
-    monkeypatch.setattr(pm, "SR_FLUSH_RUNS", True)
-    # Pin the plain layout: these tests exercise the probe LADDER with
-    # deterministic (sym, flush, paired) keys, independent of the
-    # module's default layout (pallas_paired_sym since round 4).
-    monkeypatch.setattr(pm, "SR_SYMMETRIC", False)
-    monkeypatch.setattr(pm, "SR_PAIRED_ROWS", False)
-    monkeypatch.setattr(pm, "_MOSAIC_PROBE", {})
-    monkeypatch.setattr(pm, "_on_real_tpu", lambda: True)
-    monkeypatch.setattr(pm, "_sr_probe_compile", fake_probe)
-    import jax
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    return calls
-
-
-def test_sr_mosaic_probe_accepts(monkeypatch, tmp_path):
-    """Probe passes -> Pallas dispatch unchanged, knob untouched, and
-    the verdict persists so the probe compile runs exactly once."""
-    calls = _probe_env(monkeypatch, tmp_path, {})
-    assert pm._use_pallas_sweep(100) is True
-    assert pm.SR_FLUSH_RUNS is True
-    assert pm._use_pallas_sweep(100) is True
-    assert len(calls) == 1  # in-process memo
-    monkeypatch.setattr(pm, "_MOSAIC_PROBE", {})
-    assert pm._use_pallas_sweep(100) is True
-    assert len(calls) == 1  # disk-cache hit across "processes"
-
-
-def test_sr_mosaic_probe_self_heals_to_flushless(monkeypatch, tmp_path):
-    """The ROADMAP fallback, automated: Mosaic rejecting the
-    cond-carried accumulator flips SR_FLUSH_RUNS instead of crashing an
-    unattended bench run."""
-    reject = Exception("Mosaic lowering failed: unsupported op")
-    calls = _probe_env(
-        monkeypatch, tmp_path,
-        {(False, True, False): reject})
-    assert pm._use_pallas_sweep(100) is True
-    assert pm.SR_FLUSH_RUNS is False
-    assert calls == [(False, True, False), (False, False, False)]
-
-
-def test_sr_mosaic_probe_falls_back_to_xla(monkeypatch, tmp_path):
-    """Both variants rejected -> XLA-composed sweep for the process."""
-    reject = Exception("Mosaic lowering failed: unsupported op")
-    _probe_env(
-        monkeypatch, tmp_path,
-        {(False, True, False): reject, (False, False, False): reject})
-    assert pm._use_pallas_sweep(100) is False
-    assert pm.SR_FLUSH_RUNS is True  # nothing to flip to
-
-
-def test_sr_mosaic_probe_failures_never_persisted(monkeypatch, tmp_path):
-    """A probe failure of ANY flavor must not brand the kernel as
-    rejected forever: error text cannot reliably separate a genuine
-    Mosaic rejection from a transient remote-compile failure whose
-    message happens to contain a classifier token ('unsupported',
-    'lowering', ...), so only acceptances persist to disk and rejections
-    re-probe per process."""
-    import json
-    import os
-
-    transient = Exception("HTTP 500 from remote compile service")
-    _probe_env(
-        monkeypatch, tmp_path,
-        {(False, True, False): transient, (False, False, False): transient})
-    assert pm._use_pallas_sweep(100) is False
-    cache = os.path.join(str(tmp_path), "nbody_tpu", "autotune.json")
-    persisted = json.load(open(cache)) if os.path.exists(cache) else {}
-    assert not [k for k in persisted if k.startswith("sr_mosaic|")]
-
-    # A definite-looking rejection does not persist either; the flushless
-    # acceptance that heals it does.
-    definite = Exception("Mosaic lowering failed: unsupported op")
-    monkeypatch.setattr(pm, "_MOSAIC_PROBE", {})
-    outcomes = {(False, True, False): definite, (False, False, False): None}
-    monkeypatch.setattr(
-        pm, "_sr_probe_compile",
-        lambda s, f, p: (_ for _ in ()).throw(outcomes[(s, f, p)])
-        if outcomes[(s, f, p)] else None)
-    assert pm._use_pallas_sweep(100) is True
-    persisted = json.load(open(cache))
-    keys = sorted(k for k in persisted if k.startswith("sr_mosaic|"))
-    assert len(keys) == 1  # ONLY the flushless acceptance
-    assert [persisted[k] for k in keys] == [True]
-    # The acceptance key carries the layout knobs the probe kernel baked
-    # in, so retuning SR_CHUNK/SLAB re-probes instead of reusing a
-    # verdict for a different kernel.
-    assert f"|{pm.SR_CHUNK}|{pm.SLAB}|" in keys[0]
-
-    # A stale False written by an older classifier is ignored on read.
-    monkeypatch.setattr(pm, "_MOSAIC_PROBE", {})
-    stale = {k: False for k in json.load(open(cache))}
-    json.dump(stale, open(cache, "w"))
-    calls = []
-    monkeypatch.setattr(
-        pm, "_sr_probe_compile",
-        lambda s, f, p: calls.append((s, f, p)))
-    assert pm._use_pallas_sweep(100) is True
-    assert calls  # re-probed rather than trusting the stale rejection
-
-
-def test_sr_mosaic_rejection_warns_once(monkeypatch, tmp_path, capsys):
-    """The wholesale-rejection notice prints once per process, not once
-    per retrace (an unattended run rebuilds blocks for hours)."""
-    reject = Exception("Mosaic lowering failed: unsupported op")
-    _probe_env(
-        monkeypatch, tmp_path,
-        {(False, True, False): reject, (False, False, False): reject})
-    monkeypatch.setattr(pm, "_SR_WARNED", set())
-    assert pm._use_pallas_sweep(100) is False
-    assert pm._use_pallas_sweep(100) is False
-    assert pm._use_pallas_sweep(200) is False
-    err = capsys.readouterr().err
-    assert err.count("Mosaic rejected the Pallas SR sweep") == 1
-
-
-def test_sr_agreed_verdicts_broadcast_from_process_zero(monkeypatch,
-                                                        tmp_path):
-    """Multi-process runs must agree on ONE sweep implementation: a
-    non-zero process never probes locally (its transient failure would
-    diverge the traced program from process 0's) — it takes process 0's
-    broadcast verdicts."""
-    calls = _probe_env(monkeypatch, tmp_path, {})
-    import jax
-
-    monkeypatch.setattr(jax, "process_count", lambda: 2)
-    monkeypatch.setattr(jax, "process_index", lambda: 1)
-
-    received = []
-
-    def fake_broadcast(x):
-        received.append(np.asarray(x))
-        return np.asarray([1, 0], dtype=np.int32)  # process 0 said: accepted
-
-    from jax.experimental import multihost_utils
-
-    monkeypatch.setattr(multihost_utils, "broadcast_one_to_all",
-                        fake_broadcast)
-    assert pm._sr_agreed_verdicts(False, True, False) == (True, False)
-    assert calls == []  # process 1 never ran a probe compile
-    # Process 1's placeholder contribution is all-False (broadcast_one_to_all
-    # ignores non-source inputs but they must be well-formed).
-    assert received and received[0].tolist() == [0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -1378,35 +884,24 @@ def test_periodic_mesh_env_freezes_spectra():
 
 
 def test_p3m_periodic_sweep_variants_agree():
-    """SR_SYMMETRIC and SR_PAIRED_ROWS (interpret-mode Pallas) through
-    the FULL periodic solve agree with the default XLA sweep — the
-    ghost-augmented tables are ordinary packed tables, so every sweep
-    variant must compose."""
-    import jax
-
+    """SR_SYMMETRIC through the FULL periodic solve agrees with the full
+    worklist — the ghost-augmented tables are ordinary packed tables, so
+    both worklists must compose."""
     pos, mass = _corner_blob(seed=13)
     kw = dict(grid=32, cutoff_cells=4, boundary="periodic", box_size=1.0)
-    # One plan raced across every layout: size for the full worklist.
+    # One plan for both worklists: size it for the full one.
     plan = pm.suggest_sr_plan(pos, mass, 32, 4, boundary="periodic",
-                              box_size=1.0, layout="full")
-    prev = pm.set_sr_layout(("xla", False, False))
+                              box_size=1.0, symmetric=False)
+    prev = pm.SR_SYMMETRIC
     try:
+        pm.SR_SYMMETRIC = False
         a_ref = np.asarray(pm.accelerations(pos, mass, **kw, **plan))
-        scale = np.abs(a_ref).max()
         pm.SR_SYMMETRIC = True
         a_sym = np.asarray(pm.accelerations(pos, mass, **kw, **plan))
-        np.testing.assert_allclose(a_sym, a_ref, rtol=0,
-                                   atol=3e-5 * scale)
-        pm.SR_SYMMETRIC = False
-        pm.SR_SWEEP_IMPL = "pallas"  # interpret on CPU
-        a_pl = np.asarray(pm.accelerations(pos, mass, **kw, **plan))
-        pm.SR_PAIRED_ROWS = True
-        a_pr = np.asarray(pm.accelerations(pos, mass, **kw, **plan))
     finally:
-        pm.set_sr_layout(prev)
-    np.testing.assert_allclose(a_pl, a_ref, rtol=0, atol=3e-5 * scale)
-    np.testing.assert_allclose(a_pr, a_ref, rtol=0, atol=3e-5 * scale)
-    del jax
+        pm.SR_SYMMETRIC = prev
+    scale = np.abs(a_ref).max()
+    np.testing.assert_allclose(a_sym, a_ref, rtol=0, atol=3e-5 * scale)
 
 
 def test_p3m_periodic_differentiable():

@@ -135,27 +135,24 @@ def test_uneven_shard_rejected():
         shard_state(state, 8)
 
 
-def test_ring_sym_matches_single_device():
-    """The pair-symmetric half-ring (--comm ring_sym): each unordered
-    shard pair computed once, reactions ride the ring home — must agree
-    with the single-device reference for odd K, even K (antipodal-pair
-    masking), and K=2."""
+@pytest.mark.parametrize("k", [8, 3, 2])
+def test_pallas_ring_matches_single_device(k):
+    """The tiled kernel's between form through the ppermute ring agrees
+    with the single-device reference for odd and even shard counts
+    (shards hold N/K particles, not a tile multiple)."""
     n = 500
     state = make_state(n, pad_multiple=48)  # 528: divisible by 2,3,8
     ref_state, ref_ke = _single_device_reference_state(state, 5)
-    for k in (8, 3, 2):
-        mesh = make_mesh(k)
-        sharded, _ = shard_state(state, k, mesh=mesh)
-        local = state.n_padded // k
-        opts = dict(tile_i=min(22, local), interpret=True)
-        blk = make_sharded_block_fn("pallas_sym", opts, 0.1, 5, mesh,
-                                    comm="ring_sym")
-        out, ke = blk(sharded)
-        np.testing.assert_allclose(
-            np.asarray(out.pos), np.asarray(ref_state.pos),
-            rtol=2e-6, atol=1e-10, err_msg=f"K={k}",
-        )
-        assert float(ke) == pytest.approx(float(ref_ke), rel=1e-5)
+    mesh = make_mesh(k)
+    sharded, _ = shard_state(state, k, mesh=mesh)
+    opts = dict(tile_i=32, tile_j=64, interpret=True)
+    blk = make_sharded_block_fn("pallas", opts, 0.1, 5, mesh, comm="ring")
+    out, ke = blk(sharded)
+    np.testing.assert_allclose(
+        np.asarray(out.pos), np.asarray(ref_state.pos),
+        rtol=2e-6, atol=1e-10, err_msg=f"K={k}",
+    )
+    assert float(ke) == pytest.approx(float(ref_ke), rel=1e-5)
 
 
 def _single_device_reference_state(state, steps):
@@ -165,7 +162,7 @@ def _single_device_reference_state(state, steps):
     return make_block_fn(make_accel_fn("naive"), 0.1, steps)(state)
 
 
-def test_ring_sym_leapfrog():
+def test_pallas_allgather_leapfrog():
     state = make_state(512, pad_multiple=8)
     from nbody_tpu.models.gravity import make_accel_fn
     from nbody_tpu.models.integrators import make_block_fn
@@ -176,8 +173,8 @@ def test_ring_sym_leapfrog():
     mesh = make_mesh(8)
     sharded, _ = shard_state(state, 8, mesh=mesh)
     blk = make_sharded_block_fn(
-        "pallas_sym", dict(tile_i=32, interpret=True), 0.1, 5, mesh,
-        comm="ring_sym", integrator="leapfrog",
+        "pallas", dict(tile_i=32, tile_j=32, interpret=True), 0.1, 5, mesh,
+        comm="allgather", integrator="leapfrog",
     )
     _, ke = blk(sharded)
     assert float(ke) == pytest.approx(float(ref_ke), rel=1e-5)
@@ -207,38 +204,6 @@ def test_sharded_mesh_solver_matches_single_device(kern, opts):
         atol=1e-8,
     )
     assert float(ke) == pytest.approx(float(ref_ke), rel=1e-5)
-
-
-@pytest.mark.parametrize("kern,opts,integrator", [
-    ("pm", dict(grid=16), "euler"),
-    ("p3m", dict(grid=32, capacity=64), "euler"),
-    ("p3m", dict(grid=32, capacity=64), "leapfrog"),
-])
-def test_sharded_external_env_matches_internal(kern, opts, integrator):
-    """external_env=True (the sharded watchdog sub-block path) with ONE
-    frozen env across sub-blocks must reproduce the monolithic
-    internal-env block exactly: the env is frozen once per OUTER sample
-    block in both, so splitting the block must not be physically
-    observable.  Only exercised on real hardware when a sharded mesh
-    block exceeds the watchdog budget — this pins it on the CPU mesh
-    (round-4 advisor item)."""
-    n, steps = 512, 4
-    state = make_state(n, pad_multiple=8, distribution="plummer")
-    sharded, mesh = shard_state(state, 8)
-    mono = make_sharded_block_fn(kern, opts, 0.01, steps, mesh,
-                                 comm="allgather", integrator=integrator)
-    ref, ref_ke = mono(sharded)
-    run = make_sharded_block_fn(kern, opts, 0.01, steps // 2, mesh,
-                                comm="allgather", integrator=integrator,
-                                external_env=True)
-    env = run.make_env(sharded)
-    mid, _ = run(sharded, env)
-    out, ke = run(mid, env)
-    np.testing.assert_array_equal(np.asarray(out.pos),
-                                  np.asarray(ref.pos))
-    np.testing.assert_array_equal(np.asarray(out.vel),
-                                  np.asarray(ref.vel))
-    assert float(ke) == pytest.approx(float(ref_ke), rel=1e-6)
 
 
 def test_sharded_p3m_forwards_measured_sr_plan(monkeypatch):
@@ -288,7 +253,6 @@ def test_sharded_pm_cost_model_scales():
     from jax.sharding import PartitionSpec as P
 
     from nbody_tpu.ops import pm
-    from nbody_tpu.parallel.decompose import shard_map
     from nbody_tpu.parallel.mesh import AXIS
 
     n, ng, k = 65536, 32, 8
@@ -304,7 +268,7 @@ def test_sharded_pm_cost_model_scales():
         return pm.accelerations_between(pos_l, pos, m, grid=ng)
 
     def cost(fn):
-        smf = shard_map(fn, mesh=mesh, in_specs=(P(None, AXIS), P(AXIS)),
+        smf = jax.shard_map(fn, mesh=mesh, in_specs=(P(None, AXIS), P(AXIS)),
                         out_specs=P(None, AXIS), check_vma=False)
         ca = (jax.jit(smf).lower(sharded.pos, sharded.mass)
               .compile().cost_analysis())
@@ -320,9 +284,8 @@ def test_sharded_pm_cost_model_scales():
         new.get("transcendentals"), old.get("transcendentals"))
 
 def _opt_hlo(fn, in_specs, out_specs, mesh, *args):
-    from nbody_tpu.parallel.decompose import shard_map
 
-    smf = shard_map(fn, mesh=mesh, in_specs=in_specs,
+    smf = jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
                     out_specs=out_specs, check_vma=False)
     return jax.jit(smf).lower(*args).compile().as_text()
 
@@ -333,9 +296,9 @@ def test_ring_permute_chain_is_compute_independent():
     the PREVIOUS permute's output directly — never anything derived from
     the pair kernel — so the whole K-1-hop permute chain is dataflow-
     independent of the force computation and XLA's scheduler is FREE to
-    run hop n+1's transfer under hop n's compute.  (Real-ICI timing
-    needs multi-chip hardware — ROADMAP; this pins the property the
-    overlap claim rests on.)  A regression that threads the ring buffer
+    run hop n+1's transfer under hop n's compute.  (Timing needs
+    several cards — ROADMAP; this pins the property the overlap claim
+    rests on.)  A regression that threads the ring buffer
     through the force math (serializing the ring) breaks the chain and
     fails here."""
     import re

@@ -70,3 +70,13 @@ def test_nsteps_not_multiple_of_sfreq():
     # 120 steps at sfreq=50: two printed blocks + 20 unprinted steps.
     result = run(SimConfig(n=64, nsteps=120, kernel="naive"), quiet=True)
     assert [s for s, _ in result.kenergy_trace] == [50, 100]
+
+
+@pytest.mark.parametrize("kernel", ["auto", "naive", "pallas", "pm", "p3m"])
+def test_pad_multiple_is_shard_count_only(kernel):
+    """Every kernel pads its own tiles inside (the tiled kernel pads
+    with zero-mass particles), so the state pads only to the shards."""
+    assert SimConfig(kernel=kernel).pad_multiple() == 1
+    assert SimConfig(kernel=kernel, shards=4).pad_multiple() == 4
+    assert SimConfig(kernel=kernel, tile_i=64, tile_j=128,
+                     shards=2).pad_multiple() == 2
